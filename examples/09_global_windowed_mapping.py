@@ -6,9 +6,9 @@ global_mapping.yaml) processes the whole 4M-cell map every scan. Here a
 range filter bounds where a scan can land, so the pipeline automatically
 dynamic-slices a sensor-centered window (~2x the range bound), runs the
 identical per-cell update there, and writes it back — per-scan cost is
-O(range^2), independent of map area (BENCH_NOTES.md: 2.5 ms/scan with
-raycasting on the 4M-cell map on one TPU v5e). Results are exactly equal
-to the full-map path (tests/test_window_update.py).
+O(range^2), independent of map area (PERF.md has the H100 numbers).
+Results are exactly equal to the full-map path
+(tests/test_window_update.py).
 
 A robot drives a long loop across a 120x120 m world; the final DEM and a
 submap around the end pose are exported.

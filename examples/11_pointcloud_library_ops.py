@@ -4,18 +4,17 @@ and dense-correspondence VGICP on a 100K-point scan.
 
 The nanoPCL layer this mirrors (lib/nanoPCL: KdTree search, normal
 estimation, VGICP registration) gets its speed from tree traversal on a
-CPU; the TPU-native equivalents here restructure the same queries into
-dense work instead (r5):
+CPU; the equivalents here restructure the same queries into dense work
+instead:
 
   * exact kNN: a dense [ncells, m] bucket table — candidate fetch is 27
     CONTIGUOUS slices per cell chunk (zero per-query gathers), with a
     per-query exactness certificate + brute fallback (cloud/search.py;
-    17.8 ms chained at 100K on one v5e, bit-identical to brute force);
+    bit-identical to brute force);
   * normals/covariances: one batched PCA over the gathered neighborhoods;
   * VGICP: per-voxel Gaussians built densely over a lattice-aligned grid,
     containing-voxel correspondence as arithmetic cell ids, and the whole
-    LM solve as ONE device program (cloud/registration.py; 66 ms device
-    at 100K).
+    LM solve as ONE device program (cloud/registration.py).
 
 Run: python examples/11_pointcloud_library_ops.py [--platform cpu]
       (defaults to a smaller cloud on CPU so the demo stays snappy)

@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def force_platform(platform=None):
-    """Pick the JAX platform (the session preloads the TPU backend)."""
+    """Pick the JAX platform (before any backend is created)."""
     if platform:
         import jax
 

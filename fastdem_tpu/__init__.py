@@ -1,6 +1,6 @@
-"""fastdem_tpu: a TPU-native real-time 2.5D elevation-mapping framework.
+"""fastdem_tpu: a real-time 2.5D elevation-mapping framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of FastDEM
+A from-scratch JAX/XLA re-design of the capabilities of FastDEM
 (github.com/Ikhyeon-Cho/FastDEM): LiDAR/RGB-D point-cloud ingestion with
 physics-based sensor noise models, scatter-based rasterization into a dense
 2.5D grid, recursive per-cell height estimation (Kalman / P2 quantile),

@@ -9,7 +9,7 @@ nanoPCL-filter equivalents
   * gridMaxZ (keep highest point per 2D cell).
   * deskew (per-point pose interpolation, filters/deskew.hpp:72-129).
 
-TPU-first design:
+Design:
   * Filters NEVER compact (XLA static shapes); they intersect ``mask``.
     Use pointcloud.compact() on the host when an exact-size cloud is needed.
   * The reference packs voxel coords into a 64-bit key and sorts
@@ -340,13 +340,16 @@ def deskew(
     trans = (1 - alpha)[:, None] * T_start[:3, 3] + alpha[:, None] * T_end[:3, 3]
     # p' = T_end^-1 * (R(t) p + t(t))
     R_end_inv = T_end[:3, :3].T
-    world = jnp.einsum("nij,nj->ni", R, cloud.xyz) + trans
-    xyz = (world - T_end[:3, 3]) @ R_end_inv.T
+    world = jnp.einsum("nij,nj->ni", R, cloud.xyz, precision=tfm.HIGHEST)
+    world = world + trans
+    xyz = jnp.matmul(
+        world - T_end[:3, 3], R_end_inv.T, precision=tfm.HIGHEST
+    )
     out = dataclasses.replace(cloud, xyz=xyz)
     if "normal" in cloud.channels:
         nrm = cloud.channels["normal"]
         n3 = jnp.einsum(
-            "ij,njk,nk->ni", R_end_inv, R, nrm[:, :3]
+            "ij,njk,nk->ni", R_end_inv, R, nrm[:, :3], precision=tfm.HIGHEST
         )
         out = out.with_channel(
             "normal", nrm.at[:, :3].set(n3) if nrm.shape[1] == 4 else n3
@@ -403,14 +406,19 @@ def deskew_lookup(cloud: PointCloud, pose_lookup, num_waypoints: int = 16) -> Po
     # with T_end = pose_lookup(t_last) (impl/deskew_impl.hpp:106-117).
     T_end = jnp.asarray(poses[-1], jnp.float32)
     R_end_inv = T_end[:3, :3].T
-    world = jnp.einsum("nij,nj->ni", R, cloud.xyz) + trans
-    xyz = (world - T_end[:3, 3]) @ R_end_inv.T
+    world = jnp.einsum("nij,nj->ni", R, cloud.xyz, precision=tfm.HIGHEST)
+    world = world + trans
+    xyz = jnp.matmul(
+        world - T_end[:3, 3], R_end_inv.T, precision=tfm.HIGHEST
+    )
     out = dataclasses.replace(cloud, xyz=xyz)
     # Normals rotate with the per-point relative motion, like ``deskew``
     # (transformCloud rotates normals, core/transform.hpp:42-82).
     if "normal" in cloud.channels:
         nrm = cloud.channels["normal"]
-        n3 = jnp.einsum("ij,njk,nk->ni", R_end_inv, R, nrm[:, :3])
+        n3 = jnp.einsum(
+            "ij,njk,nk->ni", R_end_inv, R, nrm[:, :3], precision=tfm.HIGHEST
+        )
         out = out.with_channel(
             "normal", nrm.at[:, :3].set(n3) if nrm.shape[1] == 4 else n3
         )
@@ -465,10 +473,9 @@ def radius_outlier_removal(
 ) -> PointCloud:
     """Keep points with >= min_neighbors other points within ``radius``
     (outlier_removal_impl.hpp:21-48). "auto"/"brute" counts exactly at
-    any N via the tiled direct-difference pass — measured FASTER than the
-    dense-table grid for pure counting (114 vs 1432 ms at 100K on v5e,
-    r5: the count needs no candidate extraction and the dense tile is
-    VPU-friendly); "grid" opts into search.radius_search_grid (exact,
+    any N via the tiled direct-difference pass (the count needs no
+    candidate extraction; which of it and the dense-table grid is faster
+    on the GPU is not measured); "grid" opts into search.radius_search_grid (exact,
     returns the neighbor sets too); "bucket" keeps the capped
     approximate voxel-bucket count for latency-bound callers."""
     if method in ("auto", "brute"):

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from fastdem_tpu.cloud.pca import eigh3x3
 from fastdem_tpu.cloud.pointcloud import PointCloud
 from fastdem_tpu.cloud.search import knn
+from fastdem_tpu.cloud.transform import HIGHEST
 
 
 def _neighborhood_cov(
@@ -42,7 +43,8 @@ def _neighborhood_cov(
     cnt_safe = jnp.maximum(cnt, 1.0)[:, None]
     mean = jnp.sum(pts * w, axis=1) / cnt_safe
     d = (pts - mean[:, None, :]) * w
-    cov = jnp.einsum("nki,nkj->nij", d, d) / cnt_safe[..., None]
+    cov = jnp.einsum("nki,nkj->nij", d, d, precision=HIGHEST)
+    cov = cov / cnt_safe[..., None]
     return cov, cnt
 
 
@@ -117,7 +119,7 @@ def _cov_tail(
             axis=-1,
         )
         cov = jnp.einsum(
-            "...ik,...k,...jk->...ij", vec, new_lam, vec
+            "...ik,...k,...jk->...ij", vec, new_lam, vec, precision=HIGHEST
         )
     ok = cnt >= 3.0
     eye = jnp.eye(3, dtype=cov.dtype)

@@ -1,6 +1,6 @@
 """Batched closed-form symmetric 3x3 eigendecomposition.
 
-TPU-native equivalent of nanopcl::geometry::computePCA
+Vectorized equivalent of nanopcl::geometry::computePCA
 (/root/reference/fastdem/lib/nanoPCL/include/nanopcl/geometry/impl/pca.hpp:67-88):
 analytic eigenvalues (trigonometric method) + cross-product eigenvectors,
 fully vectorized over arbitrary leading batch dimensions — no iterative

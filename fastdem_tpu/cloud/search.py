@@ -1,17 +1,16 @@
 """Spatial neighbor search: brute-force, voxel-bucket, and dense-grid kNN.
 
-TPU-native replacement for nanoPCL's KdTree / VoxelHash
+Data-parallel replacement for nanoPCL's KdTree / VoxelHash
 (/root/reference/fastdem/lib/nanoPCL/include/nanopcl/search/kdtree.hpp:20-49,
 search/voxel_hash.hpp:22-60). Tree traversal is hostile to SIMD/XLA; instead:
 
   * brute: doubly-tiled [B, C] distance tiles (query chunks x data chunks)
-    with a running top-k merge — EXACT at any N, MXU-shaped (|p-q|^2 via
-    the Gram-matrix expansion), peak memory independent of N.
+    with a running top-k merge — EXACT at any N, matmul-shaped (|p-q|^2
+    via the Gram-matrix expansion), peak memory independent of N.
   * grid (``knn_grid`` / ``DenseGrid``): EXACT sub-quadratic kNN — a
     host-built dense-CSR voxel grid whose per-query candidates are NINE
     contiguous z-column slices of the spatially sorted cloud (one
-    row-slice gather per column, the gather fast path — BENCH_NOTES
-    "tile-row gathers"), plus a per-query exactness certificate: the
+    row-slice gather per column), plus a per-query exactness certificate: the
     result is provably exact when no candidate column overflowed its
     capacity AND the kth distance <= bucket_size (a query lies inside its
     own bucket, so every point outside the 3x3x3 neighborhood is > one
@@ -37,6 +36,8 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from fastdem_tpu.cloud.transform import HIGHEST
+
 _INF = jnp.inf
 
 _NEIGHBOR_OFFSETS = [
@@ -48,18 +49,17 @@ _NEIGHBOR_OFFSETS = [
 
 # Self-kNN point count above which method="auto" switches from the brute
 # tile to the exact grid+certificate path (knn_grid). The brute tile's
-# top-k merge cost grows ~N^2 (1.54 s at 100K on a v5e, BENCH_OPS_r4);
-# the grid pass is ~linear.
+# top-k merge cost grows ~N^2; the grid pass is ~linear. (Where the two
+# cross on the GPU is not measured.)
 _GRID_CROSSOVER = 32768
 
 
 def _masked_topk_small(d2: jnp.ndarray, k: int):
     """Ascending top-k over a SMALL last axis by k iterative masked-argmin
-    passes. XLA:TPU's lax.top_k costs ~10 ns/element (it sorts); for the
-    candidate widths here (a few hundred lanes) k dense min/argmin/mask
-    passes are VPU-fused and effectively free (BENCH_NOTES 'dense
-    elementwise is free'), turning the grid-kNN reduction from the
-    dominant cost into noise. Ties resolve to the smallest lane index
+    passes instead of lax.top_k (a sort): for the candidate widths here (a
+    few hundred lanes) k dense min/argmin/mask passes fuse into elementwise
+    work. Whether lax.top_k is faster on the GPU is not measured. Ties
+    resolve to the smallest lane index
     (argmin convention), matching lax.top_k's stable order.
 
     Returns (values f32[Q, k] ascending, lane indices i32[Q, k])."""
@@ -95,10 +95,10 @@ def knn_brute(
     self_indices: Optional[jnp.ndarray] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Exact kNN at ANY N by doubly-tiled dense distances with a running
-    top-k (VERDICT r1 #3: the old single-tile form materialized [chunk, N]
-    and the >64K path fell back to an approximate bucket search; this
-    form's peak memory is [chunk, data_chunk] regardless of N, every
-    point-pair distance is evaluated on the MXU, and the per-data-chunk
+    top-k (the old single-tile form materialized [chunk, N] and the >64K
+    path fell back to an approximate bucket search; this form's peak
+    memory is [chunk, data_chunk] regardless of N, every point-pair
+    distance is a matmul entry, and the per-data-chunk
     merge keeps the best k seen — exact like nanoflann's KdTree queries,
     lib/nanoPCL/include/nanopcl/search/kdtree.hpp:20-49).
 
@@ -133,8 +133,11 @@ def knn_brute(
         def body(carry, inp):
             best_d, best_i = carry  # [B, ksel]
             pts, msk, base, d2b = inp
-            # |q - p|^2 = |q|^2 + |p|^2 - 2 q.p  (matmul on the MXU)
-            d2 = qn[:, None] + d2b[None, :] - 2.0 * (qq @ pts.T)
+            # |q - p|^2 = |q|^2 + |p|^2 - 2 q.p (a matmul; full f32 so
+            # the exact-search certificate holds)
+            d2 = qn[:, None] + d2b[None, :] - 2.0 * jnp.matmul(
+                qq, pts.T, precision=HIGHEST
+            )
             d2 = jnp.where(msk[None, :], d2, _INF)
             cols = base + col_iota
             if exclude_self:
@@ -211,7 +214,7 @@ def radius_count_brute(
     per_bucket truncation). Distances use DIRECT differences — a count
     can't refine a boundary-band candidate after the fact, so the Gram
     form's ~1e-3 cancellation error is not acceptable here; the [B, C, 3]
-    tile runs on the VPU (offline paths only)."""
+    tile is elementwise work (offline paths only)."""
     q = xyz if queries is None else queries
     n = xyz.shape[0]
     r2 = radius * radius
@@ -272,7 +275,7 @@ def radius_search_brute(
     data_chunk: int = 8192,
     self_indices: Optional[jnp.ndarray] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Exact radius neighbor-SET query at any N (VERDICT r2 #7).
+    """Exact radius neighbor-SET query at any N.
 
     The fixed-capacity counterpart of nanoPCL's KdTree::radius, which
     returns the full index set of points within ``radius``
@@ -284,7 +287,7 @@ def radius_search_brute(
     the caller.
 
     Doubly-tiled like knn_brute with a running top-k merge, but distances
-    are DIRECT differences (the [B, C, 3] tile runs on the VPU): a radius
+    are DIRECT differences (the [B, C, 3] tile is elementwise): a radius
     predicate can't be refined after the fact, so the Gram form's ~1e-3
     cancellation band is not acceptable here (same reasoning as
     radius_count_brute).
@@ -471,8 +474,7 @@ class DenseGrid:
     ``[starts[key(cx,cy,cz-1)], starts[key(cx,cy,cz-1)+3])``. A query's
     27-bucket neighborhood is therefore NINE contiguous row slices — nine
     size-[cap] dynamic-slice gathers per query chunk instead of 27
-    per-bucket element gathers (the row-slice form rides the gather fast
-    path; BENCH_NOTES "tile-row gathers", ~5x cheaper per index).
+    per-bucket element gathers.
 
     Exactness certificate (per query): the top-k over the column
     candidates is the TRUE kNN iff (a) no visited column span exceeded
@@ -485,7 +487,7 @@ class DenseGrid:
     tile.
 
     The reference structure is nanoPCL's KdTree (nanoflann wrapper,
-    search/kdtree.hpp:20-49); this is its TPU-shaped equivalent: O(log N)
+    search/kdtree.hpp:20-49); this is its data-parallel equivalent: O(log N)
     per-query traversal is replaced by O(1) table lookups + a fixed-width
     candidate reduction, exactness kept via the certificate + fallback.
     """
@@ -625,18 +627,17 @@ class DenseGrid:
         m: int = 32,
         cell_chunk: int = 256,
     ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-        """Self-kNN over the whole cloud via the DENSE bucket table — the
-        TPU-native formulation (r5): zero per-query gathers.
+        """Self-kNN over the whole cloud via the DENSE bucket table: zero
+        per-query gathers.
 
-        The per-query slice-fetch formulation measured 915 ms at 100K on
-        a v5e because XLA executes a vmapped dynamic-slice gather
-        per ELEMENT (~5 ns x 9 cols x cap x 3 floats x N). Here the
+        A per-query slice fetch is a vmapped dynamic-slice gather that
+        XLA executes per ELEMENT (9 cols x cap x 3 floats x N). Here the
         sorted points are scattered ONCE into a dense [ncells, m] table
-        (one row scatter, ~1 ms at 100K); a cell-range chunk's 27
+        (one row scatter); a cell-range chunk's 27
         neighbor buckets are then CONTIGUOUS rows of that table (the
         z-fastest lex key makes (dx,dy,dz) a static linear offset), so
         candidate fetch is 27 dynamic slices of dense memory per chunk —
-        dense VPU work, no serialized indices. Distances, the masked
+        dense elementwise work, no per-element indices. Distances, the masked
         top-k, and the neighbor-id selection are all dense passes;
         results scatter back by two row scatters.
 

@@ -1,6 +1,6 @@
 """Segmentation: RANSAC plane fit, euclidean clustering, ground extraction.
 
-TPU-native equivalents of nanoPCL's segmentation module
+Vectorized equivalents of nanoPCL's segmentation module
 (/root/reference/fastdem/lib/nanoPCL/include/nanopcl/segmentation/):
   * RANSAC plane (ransac_plane.hpp:126-157): all hypothesis triples are
     drawn up-front and scored in one batched [M, N] distance pass (the

@@ -15,9 +15,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 
 from fastdem_tpu.cloud.pointcloud import PointCloud
+
+# float32 contractions are pinned to full precision per call: on a GPU a
+# default-precision f32 matmul may run in TF32 (~3 decimal digits), which
+# at 10 m range moves points by a centimetre, across 0.1 m cell borders.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def make_transform(R=None, t=None) -> jnp.ndarray:
@@ -52,14 +58,14 @@ def inverse(T: jnp.ndarray) -> jnp.ndarray:
     t = T[:3, 3]
     Ti = jnp.eye(4, dtype=T.dtype)
     Ti = Ti.at[:3, :3].set(R.T)
-    Ti = Ti.at[:3, 3].set(-R.T @ t)
+    Ti = Ti.at[:3, 3].set(-jnp.matmul(R.T, t, precision=HIGHEST))
     return Ti
 
 
 def compose(*Ts: jnp.ndarray) -> jnp.ndarray:
     out = jnp.eye(4, dtype=jnp.float32)
     for T in Ts:
-        out = out @ T
+        out = jnp.matmul(out, T, precision=HIGHEST)
     return out
 
 
@@ -72,8 +78,8 @@ def translation(T: jnp.ndarray) -> jnp.ndarray:
 
 
 def transform_points(xyz: jnp.ndarray, T: jnp.ndarray) -> jnp.ndarray:
-    """Apply T to f32[N, 3] points: R @ p + t (one fused matmul on the MXU)."""
-    return xyz @ T[:3, :3].T + T[:3, 3]
+    """Apply T to f32[N, 3] points: R @ p + t."""
+    return jnp.matmul(xyz, T[:3, :3].T, precision=HIGHEST) + T[:3, 3]
 
 
 def transform_cloud(
@@ -84,7 +90,10 @@ def transform_cloud(
     transformCloud(cloud, T, frame) overload used at src/fastdem.cpp:179."""
     new = dataclasses.replace(cloud, xyz=transform_points(cloud.xyz, T))
     if "normal" in cloud.channels:
-        new = new.with_channel("normal", cloud.channels["normal"] @ T[:3, :3].T)
+        new = new.with_channel(
+            "normal",
+            jnp.matmul(cloud.channels["normal"], T[:3, :3].T, precision=HIGHEST),
+        )
     if frame_id is not None:
         new = new.with_frame(frame_id)
     return new
@@ -92,7 +101,7 @@ def transform_cloud(
 
 def rotate_covariances(cov: jnp.ndarray, R: jnp.ndarray) -> jnp.ndarray:
     """Batched R @ Sigma @ R^T for f32[N, 3, 3] (src/fastdem.cpp:181-187)."""
-    return jnp.einsum("ij,njk,lk->nil", R, cov, R)
+    return jnp.einsum("ij,njk,lk->nil", R, cov, R, precision=HIGHEST)
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +171,7 @@ def so3_exp(omega: jnp.ndarray) -> jnp.ndarray:
     R = (
         jnp.eye(3, dtype=jnp.float32)
         + jnp.sin(theta) * K
-        + (1.0 - jnp.cos(theta)) * (K @ K)
+        + (1.0 - jnp.cos(theta)) * jnp.matmul(K, K, precision=HIGHEST)
     )
     # First-order fallback near zero.
     K0 = jnp.array(

@@ -122,36 +122,30 @@ class RaycastingConfig:
     log_odds_ghost: float = 0.2
     log_odds_max: float = 2.0
     clear_threshold: float = -1.0
-    # TPU extension (no reference equivalent): observed-evidence multiplicity
+    # Extension (no reference equivalent): observed-evidence multiplicity
     # source — "exact" (distinct z-voxel count, reference semantics) or
     # "span" (cell z-extent in voxels; no scatter cost, map-size
     # independent). See rasterize.rasterize_scatter_packed.
     voxel_count_mode: str = "exact"
-    # TPU extensions: polar ray-field resolution. Halving azimuth bins
-    # roughly doubles the p90 height deviation vs the DDA oracle
-    # (BENCH_NOTES.md parameter sensitivity) but saves ~0.1 ms/scan;
-    # range bins per cell = 1 / range_bin_factor.
+    # Extensions: polar ray-field resolution. Halving azimuth bins roughly
+    # doubles the p90 height deviation vs the DDA oracle (PARITY.md) and
+    # halves the field; range bins per cell = 1 / range_bin_factor.
     num_azimuth_bins: int = 2048
-    # r2 default 0.25 (4 range bins per cell): measured <5% of touched
-    # log-odds cells deviating from the reference DDA with ghost
-    # decisions exact (PARITY.md envelope); 0.5 is ~0.05 ms/scan faster
-    # at ~6% deviation (the fast preset uses it).
+    # Default 0.25 (4 range bins per cell): <5% of touched log-odds cells
+    # deviate from the reference DDA with ghost decisions exact (PARITY.md
+    # envelope); 0.5 halves the field at ~6% deviation (the fast preset
+    # uses it).
     range_bin_factor: float = 0.25
     # Maximum ray range in meters; 0 = auto (derived from the point
     # filter's range_max, falling back to the map diagonal). Bounds the
     # polar field and enables the windowed resample on large global maps.
     max_range: float = 0.0
-    # TPU extension: ray-min-height formulation. "polar" (default; the
+    # Extension: ray-min-height formulation. "polar" (default; the
     # fused fast path, <5% log-odds envelope vs the reference DDA) or
     # "sampled" — per-ray segment sampling at dt <= res/sqrt(2), the
     # exactness-first mode (every traversed cell sampled like the DDA;
     # ~2 orders of magnitude more scatter elements, offline use).
     method: str = "polar"
-    # TPU extension: dense polar-field implementation. "auto" = the Pallas
-    # VMEM-resident kernel on TPU (ops/pallas_polar.py — one HBM
-    # round-trip instead of ~30; requires num_azimuth_bins % 128 == 0),
-    # the XLA formulation elsewhere; "xla"/"pallas" force one.
-    polar_field_impl: str = "auto"
 
 
 @dataclasses.dataclass
@@ -302,7 +296,11 @@ def _parse(root: Mapping) -> Config:
         _load(n, "max_range", cfg.raycasting, "max_range")
         _load(n, "voxel_count_mode", cfg.raycasting, "voxel_count_mode", str)
         _load(n, "method", cfg.raycasting, "method", str)
-        _load(n, "polar_field_impl", cfg.raycasting, "polar_field_impl", str)
+        if "polar_field_impl" in n:
+            log.warning(
+                "[Config] raycasting.polar_field_impl is retired (one polar "
+                "field implementation remains); ignoring it"
+            )
     n = root.get("sensor_model")
     if n:
         if n.get("type"):
@@ -377,10 +375,6 @@ def validate(cfg: Config) -> None:
             lambda v: v in ("polar", "sampled"), "polar",
         )
         warn_default(
-            "raycasting.polar_field_impl", rc, "polar_field_impl",
-            lambda v: v in ("auto", "xla", "pallas"), "auto",
-        )
-        warn_default(
             "raycasting.num_azimuth_bins", rc, "num_azimuth_bins",
             lambda v: 64 <= v <= 16384, 2048,
         )
@@ -434,11 +428,10 @@ def validate(cfg: Config) -> None:
 
 
 def load_config(path: str) -> Config:
-    import yaml
+    from fastdem_tpu.config.yamlsubset import load_yaml
 
     try:
-        with open(path) as f:
-            root = yaml.safe_load(f)
+        root = load_yaml(path)
     except Exception as e:  # noqa: BLE001 - mirror reference error wrapping
         raise RuntimeError(f"Failed to load config: {path} - {e}") from e
     return parse_config(root or {})
@@ -487,8 +480,6 @@ def parse_postprocess(root: Mapping) -> PostProcessConfig:
 
 
 def load_postprocess(path: str) -> PostProcessConfig:
-    import yaml
+    from fastdem_tpu.config.yamlsubset import load_yaml
 
-    with open(path) as f:
-        root = yaml.safe_load(f)
-    return parse_postprocess(root or {})
+    return parse_postprocess(load_yaml(path) or {})

@@ -1,6 +1,6 @@
 """Grid geometry: world position <-> cell index math for 2.5D elevation maps.
 
-TPU-native re-expression of the nanoGrid geometry contract used by FastDEM
+Vectorized re-expression of the nanoGrid geometry contract used by FastDEM
 (see reference call sites: /root/reference/fastdem/src/raycasting.cpp:57-77,
 /root/reference/fastdem/src/pcd_convert.cpp:333-349,
 /root/reference/fastdem/include/fastdem/bridge/ros/impl.hpp:42-46).
@@ -18,9 +18,9 @@ Conventions (identical to ETH grid_map / nanoGrid):
 Deviation from the reference: there is NO circular buffer. Layers are always
 stored world-aligned (``start_index`` is logically always (0, 0)); the LOCAL
 mode ``move()`` is implemented as ``jnp.roll`` + masked invalidation (see
-``fastdem_tpu.grid.gridmap.move``). On TPU a whole-grid fused roll/where pass
-costs microseconds and removes index-wrap arithmetic from every kernel, which
-is what lets rasterization/estimation compile to plain vector code.
+``fastdem_tpu.grid.gridmap.move``). A whole-grid fused roll/where pass
+removes index-wrap arithmetic from every kernel, which is what lets
+rasterization/estimation compile to plain vector code.
 
 ``GridGeometry`` is a hashable, frozen dataclass so it can be passed as a
 static argument to ``jax.jit``; per-frame dynamic state (the map center) is a

@@ -61,8 +61,7 @@ def load_orbax(
     ``jax.ShapeDtypeStruct``s carrying the shardings (discovered from the
     checkpoint's own structure metadata), so each host reads only its
     shards and no layer is ever materialized whole on one host — the
-    point of this path per its module docstring (VERDICT round-1 weak #4:
-    the previous implementation restored host-side then device_put)."""
+    point of this path per its module docstring."""
     import json
 
     import orbax.checkpoint as ocp

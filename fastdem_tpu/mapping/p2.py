@@ -5,7 +5,7 @@ Vectorized equivalent of the reference per-cell implementation
 the 5-way interval select, marker adjustment with parabolic/linear
 interpolation, phase-1 insertion + sort, and fading memory are all expressed
 as masked elementwise ops over the whole grid — no data-dependent control
-flow, so the per-scan update compiles to a handful of fused VPU passes.
+flow, so the per-scan update compiles to a handful of fused elementwise passes.
 
 Recurrence parity notes (file:line refer to quantile_estimation.hpp):
   * phase 1 (count < 5): q[count] = x; on reaching 5, sort q and set

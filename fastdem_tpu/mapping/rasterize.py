@@ -2,9 +2,8 @@
 
 Replaces the reference's per-point hash-map accumulation
 (/root/reference/fastdem/src/elevation_mapping.cpp:41-92, the hottest loop
-in the pipeline). XLA:TPU serializes scatter with duplicate indices
-(~9 ns/update measured), so the TPU-native formulation avoids scatter
-entirely (ops/segments.py):
+in the pipeline). ``rasterize`` is the sort-based formulation, with no
+duplicate-index scatter at all (ops/segments.py):
 
   1. ONE lexicographic sort of the scan by (valid, cell_id, z, z_var):
      within each cell's run, the head is the min-z point with the smallest
@@ -162,9 +161,8 @@ def rasterize_scatter(
 ) -> CellObservations:
     """Direct scatter formulation.
 
-    XLA:TPU scatter has a large FIXED cost per op (~0.6 ms) on top of the
-    per-element serialization, so independent reductions are FUSED into
-    single scatter calls over a widened table: phase 1 reduces min(z) and
+    Independent reductions are FUSED into single scatter calls over a
+    widened table: phase 1 reduces min(z) and
     max(z) (as min(-z)) in one scatter; phase 2 — which needs phase 1's
     minima for the argmin-carried variance/color — reduces variance,
     -intensity, and color in a second single scatter.
@@ -175,9 +173,9 @@ def rasterize_scatter(
     ``CellObservations.extra``.
 
     ``phase_gather_rider``: optional callable ``extra_table -> (buf, idx)``
-    invoked between the phases. Gathers also serialize with a large fixed
-    cost, so the rider's lookups are CONCATENATED with the rasterizer's own
-    min-z-per-point gather into a single gather op; ``buf[idx]`` lands in
+    invoked between the phases. The rider's lookups are CONCATENATED with
+    the rasterizer's own min-z-per-point gather into a single gather op;
+    ``buf[idx]`` lands in
     ``CellObservations.extra`` instead of the raw table.
     """
     ncell = geom.num_cells
@@ -311,6 +309,29 @@ def _i32_ordered_f32(m: jnp.ndarray) -> jnp.ndarray:
 _IMAX = jnp.int32(0x7FFFFFFF)
 
 
+def _z_range(z: jnp.ndarray, mask: jnp.ndarray):
+    """(min, max) of z over ``mask``: the argmin lane's quantization
+    range. Points whose z differ by less than one quantum tie, and ties go
+    to the smallest point index, so the range decides which point's
+    variance/color a cell carries."""
+    return (
+        jnp.min(jnp.where(mask, z, _INF)),
+        jnp.max(jnp.where(mask, z, -_INF)),
+    )
+
+
+def _gather_bits(buf: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
+    """``buf[idx]`` for a flat 4-byte ``buf``, gathered as int32 bits.
+
+    Exact for every payload (NaN, +-inf, -0.0, packed colors). Under GSPMD
+    a partitioned gather zero-fills non-owned rows and SUM-combines the
+    partials; f32 summation would flush denormal bit patterns (packed
+    colors, bitcast indices) to zero, int32 addition with 0 is exact.
+    """
+    g = jax.lax.bitcast_convert_type(buf, jnp.int32)[idx]
+    return jax.lax.bitcast_convert_type(g, buf.dtype)
+
+
 def rasterize_scatter_packed(
     geom: GridGeometry,
     position: jnp.ndarray,
@@ -324,8 +345,9 @@ def rasterize_scatter_packed(
     phase_gather_rider=None,
     voxel_count_mode: str = "exact",
     window=None,
+    quant_mask=None,
 ) -> CellObservations:
-    """Single-scatter rasterization with argmin carry (fastest path).
+    """Single-scatter rasterization with argmin carry.
 
     ``rasterize_scatter`` needs TWO scatter phases because the argmin-carried
     channels (variance/color of the min-z point) require phase 1's minima.
@@ -339,9 +361,8 @@ def rasterize_scatter_packed(
         (``_f32_ordered_i32``) — EXACT, no quantization.
       * the distinct-z-voxel presence sub-table rides along (0 marks).
 
-    vs the two-phase path this moves every reduction onto the int32
-    scatter path (2.6-4.6x faster per element than f32 here) and removes
-    the per-point cell-min gather; on maps small relative to the scan
+    vs the two-phase path this moves every reduction onto one int32
+    scatter-min and removes the per-point cell-min gather; on maps small relative to the scan
     (ncell <= 2n) the whole second phase collapses into ncell-indexed
     lookups fused into one gather. The only deviation is at quantization
     ties: among
@@ -371,8 +392,7 @@ def rasterize_scatter_packed(
     z = xyz[:, 2]
 
     # Per-scan dynamic z quantization for the argmin pack.
-    zlo = jnp.min(jnp.where(valid, z, _INF))
-    zhi = jnp.max(jnp.where(valid, z, -_INF))
+    zlo, zhi = _z_range(z, valid if quant_mask is None else quant_mask)
     zrange = jnp.maximum(zhi - zlo, 1e-6)
     zq = jnp.clip(
         jnp.floor((z - zlo) / zrange * qmax).astype(jnp.int32), 0, qmax
@@ -444,40 +464,30 @@ def rasterize_scatter_packed(
     # O(n) gather + one O(n) int32 scatter (wins on large maps, where
     # gathering every cell would scale with MAP AREA — a 200 m global map
     # is 4M cells vs a 30K scan).
-    # Fused gathers run in int32 (bit-preserving f32<->i32 casts around
-    # them): under GSPMD a partitioned gather zero-fills non-owned rows and
-    # SUM-combines the partials, and f32 summation flushes denormal bit
-    # patterns (packed colors, bitcast indices) to zero — int32 addition
-    # with 0 is exact. Gathers are dtype-neutral on this backend
-    # (BENCH_NOTES.md), so this costs nothing.
-    from fastdem_tpu.ops.rowgather import producer_gather, tile_row_gather
-
     if ncell <= 2 * n:
-        # Cell path: size-thresholded producer gathers for the argmin
-        # channels (z/var/color), tile-row for the rider's materialized
-        # polar field (gather policy note in rasterize_scatter_rows).
-        min_z = producer_gather(z, amin)
-        min_z_var = producer_gather(z_var, amin)
+        # Cell path: ncell-indexed gathers of the argmin channels.
+        min_z = _gather_bits(z, amin)
+        min_z_var = _gather_bits(z_var, amin)
         color = None
         if color_packed is not None:
             color = jnp.where(
-                touched, producer_gather(color_packed, amin), jnp.nan
+                touched, _gather_bits(color_packed, amin), jnp.nan
             ).reshape(shape)
         if phase_gather_rider is not None:
             rider_buf, rider_idx = phase_gather_rider(extra_f32)
-            extra = tile_row_gather(rider_buf, rider_idx)
+            extra = _gather_bits(rider_buf, rider_idx)
         else:
             extra = extra_f32
     else:
         # Per-point path: find each point's win (amin[ids] == index) with
-        # an O(n) tile-row lookup, then write the winner's channels with
-        # ONE O(n) int32 scatter (unique writer per cell;
-        # involution-encoded, exact).
+        # an O(n) lookup, then write the winner's channels with ONE O(n)
+        # int32 scatter (unique writer per cell; involution-encoded,
+        # exact).
         gather_ids = jnp.minimum(ids, ncell - 1)
-        amin_at_pt = tile_row_gather(amin, gather_ids)
+        amin_at_pt = amin[gather_ids]
         if phase_gather_rider is not None:
             rider_buf, rider_idx = phase_gather_rider(extra_f32)
-            extra = tile_row_gather(rider_buf, rider_idx)
+            extra = _gather_bits(rider_buf, rider_idx)
         else:
             extra = extra_f32
         at_min = valid & (amin_at_pt == iota)
@@ -579,15 +589,15 @@ def rasterize_scatter_rows(
     phase_gather_rider=None,
     voxel_count_mode: str = "exact",
     window=None,
+    quant_mask=None,
 ) -> CellObservations:
-    """Row-widened single-index scatter rasterization (fastest path, r2).
+    """Row-widened single-index scatter rasterization (the default).
 
-    Round-2 cost model (tools/bench_rowops*.py, v5e): XLA:TPU scatter and
-    gather serialize per INDEX, not per element — a [n, 32] row update
-    costs the same ~11-13 ns/index as a 1-lane flat scatter, while the
-    round-1 flat widened-table design paid per concatenated lane (4n
-    indices). So every per-cell reduction becomes ONE lane of a single
-    [n, L]-row scatter-min into an int32 [ncell+1, L] table:
+    One index per point for every lane: where the packed formulation
+    concatenates lanes into a flat table (4n indices), every per-cell
+    reduction here becomes ONE lane of a single [n, L]-row scatter-min
+    into an int32 [ncell+1, L] table (whether this beats ``packed`` and
+    ``sort`` on the GPU is not measured yet):
 
       lane 0: packed ``(quantized z << idx_bits) | point_index`` — argmin
               carry for variance/color (reference first-strict-min tie
@@ -603,14 +613,20 @@ def rasterize_scatter_rows(
               accuracy trade is obsolete on this path).
 
     The polar slope reduction (``extra_min_scatter``) keys by polar bin,
-    not cell, so it stays a separate flat scatter (a unified giant table
-    measured 16x slower — table-size bound). The argmin gather shrinks to
+    not cell, so it stays a separate flat scatter. The argmin gather
+    shrinks to
     variance [+ color] only (min z now comes from lane 1), fused with the
     rider's field lookups as before.
 
     Table size guard: the row table is [ncell+1, L]; for maps where
     ncell * L exceeds ~2^23 entries the bitmap lanes are dropped and the
     voxel count falls back to span / sort (like round 1's presence table).
+
+    ``quant_mask``: the points whose z range sets the argmin lane's z
+    quantum (default: the rasterized points). A device of a sharded map
+    rasterizes only its block's points but passes the whole window's, so
+    sub-quantum z ties resolve as on one device (see
+    rasterize_scatter_packed).
     """
     if voxel_count_mode not in ("exact", "span"):
         raise ValueError(f"unknown voxel_count_mode: {voxel_count_mode!r}")
@@ -620,8 +636,7 @@ def rasterize_scatter_rows(
     ids, valid, ncell, shape = _window_ids(geom, position, xyz, mask, window)
     z = xyz[:, 2]
 
-    zlo = jnp.min(jnp.where(valid, z, _INF))
-    zhi = jnp.max(jnp.where(valid, z, -_INF))
+    zlo, zhi = _z_range(z, valid if quant_mask is None else quant_mask)
     zrange = jnp.maximum(zhi - zlo, 1e-6)
     zq = jnp.clip(
         jnp.floor((z - zlo) / zrange * qmax).astype(jnp.int32), 0, qmax
@@ -691,40 +706,27 @@ def rasterize_scatter_rows(
         extra_f32 = jnp.where(et == _IMAX, _INF, _i32_ordered_f32(et))
 
     # ---- Argmin-carried channels: variance [+ color] of the min point.
-    # Gather policy (same-session A/Bs, tools/bench_sweep_r2c.py +
-    # bench_perop.py): lookups into MATERIALIZED buffers (the rider's
-    # polar field, the amin table — scatter outputs) go through
-    # ops.rowgather.tile_row_gather (aligned tile-row fetch + dense lane
-    # select, ~5x faster than element gathers: 0.086 vs 0.42 ms for the
-    # rider field); lookups whose source is a fusable elementwise
-    # PRODUCER (z_var, packed color) use the size-thresholded
-    # producer_gather — tile-row when the producer is small (-0.21 ms at
-    # 30K pts), flat above 64K elements so XLA fuses the producer into
-    # the gather instead of materializing it (+0.5 ms on RGB-D 300K
-    # otherwise). Gathers stay SPLIT per buffer (0.586 split vs 0.697
-    # concat-fused, tools/bench_rowops3.py). Cell path when the map is
-    # small relative to the scan, per-point path otherwise.
-    from fastdem_tpu.ops.rowgather import producer_gather, tile_row_gather
-
+    # One gather per buffer; cell path when the map is small relative to
+    # the scan, per-point path otherwise.
     if ncell <= 2 * n:
-        min_z_var = producer_gather(z_var, amin)
+        min_z_var = _gather_bits(z_var, amin)
         if color_packed is not None:
             color = jnp.where(
-                touched, producer_gather(color_packed, amin), jnp.nan
+                touched, _gather_bits(color_packed, amin), jnp.nan
             ).reshape(shape)
         else:
             color = None
         if phase_gather_rider is not None:
             rider_buf, rider_idx = phase_gather_rider(extra_f32)
-            extra = tile_row_gather(rider_buf, rider_idx)
+            extra = _gather_bits(rider_buf, rider_idx)
         else:
             extra = extra_f32
     else:
         gather_ids = jnp.minimum(ids, ncell - 1)
-        amin_at_pt = tile_row_gather(amin, gather_ids)
+        amin_at_pt = amin[gather_ids]
         if phase_gather_rider is not None:
             rider_buf, rider_idx = phase_gather_rider(extra_f32)
-            extra = tile_row_gather(rider_buf, rider_idx)
+            extra = _gather_bits(rider_buf, rider_idx)
         else:
             extra = extra_f32
         at_min = valid & (amin_at_pt == iota)
@@ -797,10 +799,8 @@ def rasterize_scatter_rows_batched(
     """K-scan microbatched row rasterization (flat offset-index ops).
 
     Same per-scan semantics as ``rasterize_scatter_rows``, but the K scans'
-    irregular ops are each ONE flat op with indices offset by k*stride:
-    scatter/gather serialize per INDEX and the per-index rate improves with
-    index count (~11 ns/idx at 30K -> ~8 at 120K, tools/bench_rowops.py /
-    bench_microbatch.py), while K separate ops pay the worse rate K times.
+    irregular ops are each ONE flat op with indices offset by k*stride
+    instead of K separate ops (its speed on the GPU is not measured).
     Phase A of the pipeline is per-scan independent given the pose stream
     (pipeline._build_phases), which is what makes this legal: each scan's
     lanes land in its own [ncell+1, L] table slice, so results are

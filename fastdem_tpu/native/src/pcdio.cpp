@@ -2,7 +2,7 @@
 //
 // Native-code counterpart of the reference's C++ IO layer
 // (/root/reference/fastdem/lib/nanoPCL/include/nanopcl/io/pcd_io.hpp,
-// bin_io.hpp). The TPU framework keeps compute in XLA; file parsing is
+// bin_io.hpp). The framework keeps compute in XLA; file parsing is
 // host work where Python costs 10-100x, so it lives here behind a ctypes
 // ABI (plain C structs + malloc'd buffers, no Python headers needed).
 //

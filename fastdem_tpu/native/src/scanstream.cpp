@@ -9,7 +9,7 @@
 // (mask=0, xyz=1e9 sentinel beyond n — the PointCloud padding convention).
 // Bounded lookahead keeps memory flat; the Python binding drains the ring
 // while the device integrates the previous batch, overlapping host parse
-// time with TPU compute.
+// time with device compute.
 //
 // Plain-C ABI, ctypes-bound (fastdem_tpu/native/__init__.py).
 

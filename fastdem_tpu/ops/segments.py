@@ -1,14 +1,12 @@
-"""Segmented-array primitives: the TPU-native substitute for scatter.
+"""Segmented-array primitives: a sort-based substitute for scatter.
 
-XLA:TPU lowers scatter with duplicate indices to a serialized update loop
-(~9 ns/element measured on v5e — tools/microbench.py), which made scatter
-the entire cost of the mapping hot path. These helpers re-express
-"reduce by key into a dense table" as:
+These helpers re-express "reduce by key into a dense table" as:
 
   sort by key  ->  segmented scan / head-tail picks  ->  searchsorted gather
 
-which is all dense vector work (bitonic sort, log-depth scans, vectorized
-binary search) — no serialized memory traffic.
+which is all dense vector work (sort, log-depth scans, vectorized binary
+search) with no duplicate-index scatter. The rasterizer's "sort" mode is
+built on them (mapping/rasterize.py).
 
 Key layout convention: arrays sorted ascending by (invalid, key, ...);
 invalid entries sort to the tail and get key = num_keys sentinel.

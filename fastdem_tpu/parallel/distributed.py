@@ -4,9 +4,18 @@ The reference is a single process (SURVEY.md sec. 5.8 — its only transport
 is ROS pub/sub at the application edge). Here the multi-host story is the
 standard JAX recipe: one process per host, ``jax.distributed.initialize``,
 a global 2D map mesh spanning all hosts' devices (parallel/sharding.py),
-and fully-addressable global arrays. ICI carries the halo exchanges that
-GSPMD inserts for stencil post-processing; DCN only carries scan input
+and fully-addressable global arrays. The GPUs of a host are joined by
+NVLink, which carries the halo exchanges GSPMD inserts for stencil
+post-processing; the network between hosts only carries scan input
 broadcast and checkpoint traffic.
+
+On GPUs, a process drives every GPU it sees, and a JAX process reserves
+most of each card's memory when it first uses it. For one process per
+GPU (several processes on one host), give each its own card with
+``CUDA_VISIBLE_DEVICES`` (process ``i`` sees GPU ``i``) before it imports
+JAX, or share a card by setting ``XLA_PYTHON_CLIENT_MEM_FRACTION``.
+``coordinator`` must be given explicitly (``localhost:<port>`` on one
+host): nothing in the environment tells JAX of a cluster.
 
 Usage (one command per host):
   python -m fastdem_tpu.parallel.distributed --coordinator host0:1234 \
@@ -63,8 +72,7 @@ def save_sharded_npz(
     jitted dynamic-slice (an allgather of just that block under GSPMD /
     multi-process), process 0 appends its bytes to the open zip member,
     and the block is dropped. Peak host memory = one ``rows x col_block``
-    block per step instead of the whole layer (round-1 VERDICT weak #4:
-    the previous implementation process_allgather'd entire layers).
+    block per step instead of the whole layer.
 
     ``col_block``: columns per block; 0 picks ~16 MB blocks. The on-disk
     bytes are identical to ``io.npz.save_npz`` (STORE-mode zip, real

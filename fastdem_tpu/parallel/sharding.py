@@ -9,9 +9,9 @@ inserts halo exchanges for the stencil post-processing ops automatically;
 per-scan point arrays are replicated (cheap: ~30K points vs multi-GB maps)
 so scatters into each block need no cross-device reshuffle of points.
 
-Scaling model (How-to-Scale-Your-Model recipe): pick the mesh, annotate the
-shardings, let XLA insert collectives; the block grid maps onto ICI
-neighbors so halo exchange is nearest-neighbor ``ppermute`` traffic.
+Scaling model: pick the mesh, annotate the shardings, let XLA insert
+collectives. GPUs of one host are joined all to all (NVLink), so the mesh
+shape follows the map alone: the most-square block grid keeps halos short.
 """
 
 from __future__ import annotations
@@ -98,16 +98,13 @@ def shard_state(state: GridMapState, mesh: Mesh) -> GridMapState:
 
 
 def _shardmap_step(
-    geom, cfg, mesh, has_intensity, has_color, donate, polar_field_impl,
-    window_update,
+    geom, cfg, mesh, has_intensity, has_color, donate, window_update,
 ):
-    """shard_map formulation (VERDICT r2 #2): the whole windowed integrate
+    """shard_map formulation: the whole windowed integrate
     step runs per-device on the block-local layers — each device updates
     the statically clamped intersection of the global update window with
     its block, and the per-scan polar ray field is computed per-device
-    from the replicated points (so the Pallas VMEM tail runs unpartitioned
-    — no custom-call partitioning is ever needed). ZERO collectives per
-    scan: blocks tile the global windowed update exactly
+    from the replicated points. ZERO collectives per scan: blocks tile the global windowed update exactly
     (mapping/pipeline.py spmd_blocks notes).
 
     Raises ValueError when the configuration can't use it (LOCAL mode,
@@ -117,7 +114,7 @@ def _shardmap_step(
     # jax >= 0.8 public API renamed check_rep -> check_vma; keep one call
     # convention here and adapt by feature-detecting the kwarg (a jax that
     # exposes jax.shard_map but still takes check_rep would otherwise
-    # TypeError instead of falling back — ADVICE r4).
+    # TypeError instead of falling back).
     try:
         import inspect
 
@@ -147,8 +144,7 @@ def _shardmap_step(
     smx, smy = mesh.shape[MAP_AXES[0]], mesh.shape[MAP_AXES[1]]
     raw = build_integrate(
         geom, cfg, has_intensity, has_color, jit=False,
-        polar_field_impl=polar_field_impl, window_update=window_update,
-        spmd_blocks=(smx, smy),
+        window_update=window_update, spmd_blocks=(smx, smy),
     )
     proto = create_map_state(geom, cfg, (0.0, 0.0), has_intensity, has_color)
     lyr_spec = P(*MAP_AXES)
@@ -199,20 +195,17 @@ def build_sharded_integrate(
     has_color: bool = False,
     donate: bool = True,
     window_update: bool = None,
-    polar_field_impl: str = None,
 ):
     """Jit the integrate step over the mesh. Two formulations:
 
     1. shard_map windowed (GLOBAL maps with a finite range filter): each
        device updates window-intersect-block locally — zero per-scan
-       collectives, window-local O(range^2) dense cost, and the Pallas
-       polar tail available per-device (``polar_field_impl`` defaults to
-       the config key, normally "auto"). Preferred whenever it applies.
-    2. GSPMD full-map fallback (LOCAL mode or no usable window): map
-       blocks sharded over the mesh, scan arrays replicated, GSPMD
-       partitions the scatters; polar_field_impl pinned to "xla" (the
-       custom call must not be partitioned) and window_update=False (the
-       window slices would insert per-scan collectives).
+       collectives and window-local O(range^2) dense cost. Preferred
+       whenever it applies.
+    2. GSPMD full-map fallback (LOCAL mode, no usable window, or
+       ``window_update=False``): map blocks sharded over the mesh, scan
+       arrays replicated, GSPMD partitions the scatters; the update window
+       stays off (its slices would insert per-scan collectives).
 
     Returns (step_fn, shard_fn)."""
     from fastdem_tpu.mapping.pipeline import build_integrate, create_map_state
@@ -220,7 +213,7 @@ def build_sharded_integrate(
     try:
         step, _ = _shardmap_step(
             geom, cfg, mesh, has_intensity, has_color, donate,
-            polar_field_impl, window_update,
+            window_update,
         )
         return step, lambda s: shard_state(s, mesh)
     except ValueError:
@@ -228,7 +221,7 @@ def build_sharded_integrate(
 
     raw = build_integrate(
         geom, cfg, has_intensity, has_color, jit=False,
-        polar_field_impl="xla", window_update=False,
+        window_update=False,
     )
     proto = create_map_state(geom, cfg, (0.0, 0.0), has_intensity, has_color)
     st_sh = state_shardings(mesh, proto)
@@ -292,14 +285,13 @@ def build_sharded_integrate_sequence(
 
     # shard_map windowed formulation when it applies (see
     # build_sharded_integrate): lax.scan over the per-device windowed
-    # step — zero collectives per scan, Pallas polar available.
+    # step — zero collectives per scan.
     if seq_kwargs.get("window_update") is not False and not any(
-        k not in ("window_update", "polar_field_impl") for k in seq_kwargs
+        k != "window_update" for k in seq_kwargs
     ):
         try:
             _, inner = _shardmap_step(
                 geom, cfg, mesh, has_intensity, has_color, False,
-                seq_kwargs.get("polar_field_impl"),
                 seq_kwargs.get("window_update"),
             )
 
@@ -329,7 +321,6 @@ def build_sharded_integrate_sequence(
         except ValueError:
             pass
 
-    seq_kwargs.setdefault("polar_field_impl", "xla")  # see above
     # Windowed updates dynamic-slice across block shards (collectives per
     # scan) — the GSPMD fallback keeps full-map updates, whose scatters
     # stay shard-local.

@@ -13,7 +13,7 @@ with the reference guards: center finite, >= min_valid neighbors, PCA valid
 (trace >= f32 eps), lambda_1 >= 1e-8 (:85-96). Skipped cells keep their
 previous layer values.
 
-TPU shape: the windowed moment sums are contractions of the [K, H, W]
+Shape of the computation: the windowed moment sums are contractions of the [K, H, W]
 shifted stack against constant per-offset vectors; the eigen-solve is the
 closed-form batched 3x3 (cloud/pca.py). Everything is one fused pass, no
 per-cell loops.
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from fastdem_tpu.cloud.pca import compute_pca
+from fastdem_tpu.cloud.transform import HIGHEST
 from fastdem_tpu.config.config import FeatureExtractionConfig
 from fastdem_tpu.postprocess.stencil import disk_offsets, window_stack
 
@@ -55,14 +56,14 @@ def extract_features(
     n_safe = jnp.maximum(n, 1.0)
 
     # Moment sums over the window (constants contract against f / dz).
-    sx = jnp.einsum("k,khw->hw", dx, f)
-    sy = jnp.einsum("k,khw->hw", dy, f)
+    sx = jnp.einsum("k,khw->hw", dx, f, precision=HIGHEST)
+    sy = jnp.einsum("k,khw->hw", dy, f, precision=HIGHEST)
     sz = jnp.sum(dz, axis=0)
-    sxx = jnp.einsum("k,khw->hw", dx * dx, f)
-    syy = jnp.einsum("k,khw->hw", dy * dy, f)
-    sxy = jnp.einsum("k,khw->hw", dx * dy, f)
-    sxz = jnp.einsum("k,khw->hw", dx, dz)
-    syz = jnp.einsum("k,khw->hw", dy, dz)
+    sxx = jnp.einsum("k,khw->hw", dx * dx, f, precision=HIGHEST)
+    syy = jnp.einsum("k,khw->hw", dy * dy, f, precision=HIGHEST)
+    sxy = jnp.einsum("k,khw->hw", dx * dy, f, precision=HIGHEST)
+    sxz = jnp.einsum("k,khw->hw", dx, dz, precision=HIGHEST)
+    syz = jnp.einsum("k,khw->hw", dy, dz, precision=HIGHEST)
     szz = jnp.sum(dz * dz, axis=0)
 
     mx, my, mz = sx / n_safe, sy / n_safe, sz / n_safe

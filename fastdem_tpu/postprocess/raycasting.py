@@ -1,6 +1,6 @@
 """Ghost-obstacle removal via log-odds visibility (polar raycast).
 
-TPU-native reformulation of the reference DDA raycaster
+Data-parallel reformulation of the reference DDA raycaster
 (/root/reference/fastdem/src/raycasting.cpp). The sequential per-ray grid
 walk that records the minimum ray height per traversed cell (:46-139) is
 replaced by a POLAR reduction that exploits the single shared ray origin:
@@ -19,14 +19,12 @@ replaced by a POLAR reduction that exploits the single shared ray origin:
      cell's angular footprint (wider near the sensor) is covered by
      per-range-column power-of-two azimuth smears (static masks); with
      the exact-window fold (default) the residual window rides the field
-     too, so the min over the exact span is ONE lookup per cell (a
-     tile-row gather, ops/rowgather.py).
+     too, so the min over the exact span is ONE lookup per cell.
 
 The only irregular-memory ops are one N-sized scatter and one
-cell-count-sized tile-row gather (XLA:TPU serializes irregular indices
-at ~4-19 ns each — the naive 18M-sample scatter formulation cost
-~160 ms/scan; this path is ~0.5 ms incl. the dense tail, which the
-Pallas kernel ops/pallas_polar.py runs in VMEM).
+cell-count-sized gather; everything else is dense elementwise/roll work
+that XLA fuses. The naive formulation (ray_min_height_sampled) scatters
+~2*(rows+cols) samples per ray instead.
 
 Semantics parity (file:line refer to raycasting.cpp):
   * observed evidence: +log_odds_observed per downsampled point in the
@@ -108,9 +106,8 @@ def polar_dims(
 ):
     """Polar grid dims. ``max_range`` bounds the range axis: without it the
     field spans the map DIAGONAL, which explodes on large global maps
-    (200 m @ 0.1 m -> [5657, 2048] and ~75 ms/scan); real sensors are
-    range-limited and the pipeline derives the bound from the point
-    filter's range_max."""
+    (200 m @ 0.1 m -> [5657, 2048]); real sensors are range-limited and
+    the pipeline derives the bound from the point filter's range_max."""
     A = num_azimuth
     dr = geom.resolution * range_bin_factor
     diag = math.hypot(geom.rows, geom.cols) * geom.resolution
@@ -129,10 +126,9 @@ def polar_scatter_spec(
     range_bin_factor: float = 0.5,
     max_range: Optional[float] = None,
 ):
-    """The polar slope-scatter inputs, exposed so the pipeline can FUSE
-    this scatter with the rasterizer's (scatter ops carry a large fixed
-    cost on TPU). Returns (ids in [0, A*R] with A*R the dump slot,
-    values, table_size A*R+1)."""
+    """The polar slope-scatter inputs, exposed so the pipeline can run
+    this scatter inside the rasterizer. Returns (ids in [0, A*R] with A*R
+    the dump slot, values, table_size A*R+1)."""
     A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
     dxy = xyz[:, :2] - sensor_origin[:2]
     dz = xyz[:, 2] - sensor_origin[2]
@@ -151,9 +147,8 @@ def polar_scatter_spec(
     # within half a bin of the true exit, halving the |slope|*dr endpoint
     # quantization error of the DDA's exit-height record.
     rbin_exit = jnp.clip(jnp.round(d_exit / dr).astype(jnp.int32), 0, R - 1)
-    # [R, A] layout (range-major): the reverse cummin then runs along the
-    # sublane axis and the azimuth smears along the lane axis — measured
-    # ~1 ms faster than the [A, R] orientation on v5e.
+    # [R, A] layout (range-major): the reverse cummin runs along the major
+    # axis and the azimuth smears along the contiguous minor axis.
     key = jnp.where(valid, rbin_exit * A + abin, A * R)
     return key, jnp.where(valid, slope, _INF), A * R + 1
 
@@ -189,7 +184,6 @@ def polar_resample(
     range_bin_factor: float = 0.5,
     max_range: Optional[float] = None,
     exact_window: bool = False,
-    impl: str = "xla",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Continue from the scattered [R*A] min slopes to per-cell heights.
 
@@ -199,27 +193,15 @@ def polar_resample(
     """
     smeared = polar_smeared_field(
         geom, sensor_origin, scat_flat, num_azimuth, range_bin_factor,
-        max_range, exact_window=exact_window, impl=impl,
+        max_range, exact_window=exact_window,
     )
     a0, a1, r_idx, in_range = resample_indices(
         geom, position, sensor_origin, num_azimuth, range_bin_factor,
         max_range,
     )
-    # Aligned tile-row lookups beat element gathers ~5x on TPU
-    # (ops/rowgather.py); A is a power of two >= 128 in every preset.
-    if num_azimuth % 128 == 0:
-        from fastdem_tpu.ops.rowgather import tile_row_gather
-
-        flat = smeared.reshape(-1)
-        h_cell = tile_row_gather(flat, r_idx * num_azimuth + a0)
-        if not exact_window:
-            h_cell = jnp.minimum(
-                h_cell, tile_row_gather(flat, r_idx * num_azimuth + a1)
-            )
-    elif exact_window:
-        h_cell = smeared[r_idx, a0]
-    else:
-        h_cell = jnp.minimum(smeared[r_idx, a0], smeared[r_idx, a1])
+    h_cell = smeared[r_idx, a0]
+    if not exact_window:
+        h_cell = jnp.minimum(h_cell, smeared[r_idx, a1])
     touched = jnp.isfinite(h_cell) & in_range
     return jnp.where(touched, h_cell, jnp.nan), touched
 
@@ -232,47 +214,11 @@ def polar_smeared_field(
     range_bin_factor: float = 0.5,
     max_range: Optional[float] = None,
     exact_window: bool = False,
-    impl: str = "xla",
 ) -> jnp.ndarray:
     """Scattered [R*A] min slopes -> azimuth-smeared height field [R, A].
 
-    ``impl``: "xla" (this formulation — ~30 dense passes, each an HBM
-    round trip), "pallas" (ops/pallas_polar.py — the whole tail in VMEM,
-    one HBM round trip; TPU only, needs num_azimuth % 128 == 0), or
-    "auto" (pallas when the backend is TPU and the shape qualifies).
-    Results agree to f32 FMA-contraction tolerance (<4e-6 on heights;
-    identical finite sets — tests/test_rowops.py)."""
-    interpret = False
-    if impl == "pallas_interpret":
-        # Mosaic interpreter: exercises the Pallas code path on CPU (the
-        # virtual-mesh sharding tests drive the shard_map'd kernel this
-        # way); never for production use.
-        impl, interpret = "pallas", True
-    if impl not in ("xla", "pallas", "auto"):
-        raise ValueError(f"unknown polar_field_impl: {impl!r}")
-    if impl == "auto":
-        # The kernel holds the field (in + out + a working copy) in VMEM
-        # (~16 MB budget): large fields (long-range raycast on global
-        # maps) must stay on the XLA path. 12 MB leaves headroom for
-        # Mosaic's scoped allocations (a [64,520,2048] vmapped block
-        # measured 16.25M > limit).
-        A_, R_, _dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
-        field_bytes = 2 * (math.ceil(R_ / 8) * 8) * A_ * 4
-        impl = (
-            "pallas"
-            if jax.default_backend() == "tpu"
-            and num_azimuth % 128 == 0
-            and field_bytes <= 12 * 1024 * 1024
-            else "xla"
-        )
-    if impl == "pallas":
-        from fastdem_tpu.ops.pallas_polar import polar_smeared_field_pallas
-
-        return polar_smeared_field_pallas(
-            geom, sensor_origin, scat_flat, num_azimuth,
-            range_bin_factor, max_range, exact_window=exact_window,
-            interpret=interpret,
-        )
+    About 30 dense passes (reverse cummin, in-cell range fold, masked
+    azimuth roll-mins) that XLA fuses; the [R, A] field is a few MB."""
     A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
     scat = scat_flat.reshape(R, A)
     ms = jax.lax.cummin(scat, axis=0, reverse=True)
@@ -309,8 +255,7 @@ def polar_smeared_field(
     # column masks; the exact window-w minimum then comes from the classic
     # sparse-table trick — two overlapping half-window gathers — without
     # materializing an [L, A, R] table. ~9 dense masked passes + 2 gathers
-    # per cell (XLA:TPU gathers serialize, so gather count is the cost
-    # that matters).
+    # per cell.
     lvl_static, shift_static = _column_windows(geom, A, R, dr)
     smeared = h_polar
     for k in range(int(np.max(lvl_static))):
@@ -326,8 +271,7 @@ def polar_smeared_field(
         # p-windows overlap and the union is the CONTIGUOUS range
         # [a, a + s + p - 1] = the exact w-bin window. One gather per cell
         # then suffices (resample_indices(exact_window=True)), trading
-        # ~log2(max s) dense passes (cheap) for half the serialized gather
-        # elements. Bitwise identical to the two-gather form (same min
+        # ~log2(max s) dense passes for half the gather elements. Bitwise identical to the two-gather form (same min
         # set).
         max_shift = int(np.max(shift_static))
         for b in range(max(0, max_shift).bit_length()):
@@ -358,7 +302,7 @@ def resample_indices(
     ``window``: optional (r0, c0, wr, wc) — restrict the resample to the
     wr x wc cell window whose top-left cell is (r0, c0) (traced values,
     static extents). The per-cell gather is THE map-size-scaling cost of
-    raycasting (two serialized lookups per cell), so large global maps
+    raycasting (one or two lookups per cell), so large global maps
     resample only a sensor-centered window of ~2*max_range extent.
     """
     A, R, dr = polar_dims(geom, num_azimuth, range_bin_factor, max_range)
@@ -439,7 +383,8 @@ def ray_min_height_sampled(
     sensor_origin: jnp.ndarray,
     num_samples: Optional[int] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Sampling + scatter-min formulation (parity oracle; slow on TPU)."""
+    """Sampling + scatter-min formulation (parity oracle; ~2*(rows+cols)
+    scatter elements per ray)."""
     S = num_samples or 2 * (geom.rows + geom.cols)
     ncell = geom.num_cells
     shape = geom.shape
@@ -527,7 +472,7 @@ def apply_raycasting(
         ray_min, ray_touched = polar_resample(
             geom, state.position, sensor_origin, polar_table,
             num_azimuth=num_azimuth, range_bin_factor=range_bin_factor,
-            max_range=max_range, impl=cfg.polar_field_impl,
+            max_range=max_range,
         )
     elif method == "polar":
         ray_min, ray_touched = ray_min_height_polar(

@@ -2,7 +2,7 @@
 
 The reference iterates precomputed neighborhoods
 (nanogrid region(radius)/region(Size) + neighbors(), SURVEY.md sec. 2.3);
-on TPU the equivalent is a stacked gather of shifted copies: for a window of
+here the equivalent is a stacked gather of shifted copies: for a window of
 K offsets over an [H, W] layer, build a [K, H, W] tensor (edges padded with
 NaN so border cells simply see fewer valid neighbors, matching the
 reference's bounds-checked iteration). XLA fuses the K shifted slices into

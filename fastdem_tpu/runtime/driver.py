@@ -153,8 +153,7 @@ class MappingDriver:
                 del self._queue[: len(items)]
                 self._inflight = len(items)
                 # Snapshot the next burst for stage-ahead OUTSIDE the
-                # lock: device_put dispatches can take tens of ms each on
-                # a remote backend, and holding _qcond that long would
+                # lock: holding _qcond across device_put dispatches would
                 # stall on_scan producers exactly when backlogged.
                 to_stage = (
                     list(self._queue[: self.burst_batch])
@@ -469,7 +468,7 @@ class MappingDriver:
     def _banner(self):
         cfg = self.mapper.cfg
         log.info(
-            "FastDEM-TPU driver: map %dx%d @ %.2fm | mode=%s estimator=%s "
+            "FastDEM driver: map %dx%d @ %.2fm | mode=%s estimator=%s "
             "sensor=%s raycast=%s | pp %.1f Hz viz %.1f Hz",
             self.geom.rows,
             self.geom.cols,

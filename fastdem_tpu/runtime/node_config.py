@@ -104,10 +104,9 @@ class NodeConfig:
     def load(path: str) -> "NodeConfig":
         if not path:
             raise ValueError("config_file path is empty")
-        import yaml
+        from fastdem_tpu.config.yamlsubset import load_yaml
 
-        with open(path) as f:
-            return NodeConfig.parse(yaml.safe_load(f) or {})
+        return NodeConfig.parse(load_yaml(path) or {})
 
     def validate(self) -> None:
         """Node-level validation (parameters.hpp:117-134: throws)."""

@@ -3,7 +3,7 @@
 
 Round-1 stopped at structured-dict payloads (runtime/bridge.py); this
 module produces the actual message-level encoding so driver sinks are
-consumable by real robot stacks (VERDICT r1 missing #1):
+consumable by real robot stacks:
 
   * ``map_to_pointcloud2`` mirrors the reference's field table and byte
     layout exactly (/root/reference/fastdem/include/fastdem/bridge/ros/

@@ -30,6 +30,8 @@ from typing import Union
 
 import jax.numpy as jnp
 
+from fastdem_tpu.cloud.transform import HIGHEST
+
 _MIN_VARIANCE = 1e-6  # PSD floor (lidar_model.hpp:53)
 _FALLBACK_VARIANCE = 0.01  # near-origin / invalid-depth fallback [m^2]
 
@@ -90,7 +92,7 @@ class LiDARModel:
         """r3^T Sigma r3 = var_lat + (var_rad - var_lat) * (r3 . d)^2."""
         dist, var_r, var_l, near = self._variances(xyz)
         d = xyz / jnp.maximum(dist, 1e-12)[:, None]
-        proj = d @ r3
+        proj = jnp.matmul(d, r3, precision=HIGHEST)
         var = var_l + (var_r - var_l) * proj * proj
         return jnp.where(near, _FALLBACK_VARIANCE, var)
 

@@ -3,7 +3,7 @@
 The sharding design's claims — per-scan integrates are collective-FREE
 (scans replicated, scatters shard-local) and stencil postprocess costs
 only nearest-neighbor halo bytes — are verified by parsing the compiled
-program rather than asserted in prose (VERDICT r4 weak #3): every
+program rather than asserted in prose: every
 cross-device byte XLA will move appears as a collective instruction whose
 result shape is statically known.
 """

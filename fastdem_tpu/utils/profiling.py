@@ -4,7 +4,7 @@ Equivalents of the reference's benchmark harness
 (/root/reference/fastdem/lib/nanoPCL/benchmarks/common/benchmark_common.hpp:
 Stats{mean, stddev, median, CI95} with IQR outlier removal and platform
 capture) plus jax.profiler trace capture for device-level inspection
-(SURVEY.md sec. 5.1: the TPU equivalent of the reference's timer tables).
+(SURVEY.md sec. 5.1: the equivalent of the reference's timer tables).
 """
 
 from __future__ import annotations
@@ -96,10 +96,10 @@ def platform_info() -> dict:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/fastdem_trace"):
+def trace(log_dir: str = "fastdem_trace"):
     """Capture a jax.profiler trace around a block (view with xprof/
-    tensorboard). The TPU-native replacement for the reference's manual
-    timer tables."""
+    tensorboard). The replacement for the reference's manual timer
+    tables."""
     import jax
 
     jax.profiler.start_trace(log_dir)

@@ -3,7 +3,7 @@
 // build time by the reference's CMake and is NOT present in this
 // environment). This header exists ONLY to compile the reference FastDEM
 // C++ sources into a golden-output generator (tests/refbuild/golden_gen.cpp)
-// so the TPU implementation can be validated against the reference's actual
+// so this implementation can be validated against the reference's actual
 // numerics. It is original code: the circular-buffer grid semantics mirror
 // the public ETH grid_map design the reference documents itself against
 // (src/raycasting.cpp:60-117 spells out the coordinate mapping; iterator

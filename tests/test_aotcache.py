@@ -23,6 +23,22 @@ def geom():
     return GridGeometry.from_length(6.0, 6.0, 0.1)
 
 
+@pytest.fixture(autouse=True)
+def no_env_cache(monkeypatch):
+    """Bundles are explicit here; an outer JAX_COMPILATION_CACHE_DIR would
+    (rightly) conflict with them."""
+    monkeypatch.delenv(aotcache.ENV_CACHE_DIR, raising=False)
+
+
+@pytest.fixture
+def restore_cache_dir():
+    import jax
+
+    prev = jax.config.jax_compilation_cache_dir
+    yield
+    jax.config.update("jax_compilation_cache_dir", prev)
+
+
 def test_warmup_populates_bundle_and_manifest(tmp_path, geom):
     bundle = str(tmp_path / "bundle")
     cfg = Config()
@@ -70,3 +86,34 @@ def test_fingerprint_sensitivity(geom):
     assert fp1 != aotcache.fingerprint(geom, cfg, None, (8192,))
     geom2 = GridGeometry.from_length(8.0, 6.0, 0.1)
     assert fp1 != aotcache.fingerprint(geom2, cfg, None, (4096,))
+
+
+def test_cache_dir_from_env_stands(tmp_path, monkeypatch, restore_cache_dir):
+    """JAX_COMPILATION_CACHE_DIR set: JAX's own setting stands and the
+    helper sets no other directory."""
+    import jax
+
+    env_dir = str(tmp_path / "env_cache")
+    monkeypatch.setenv(aotcache.ENV_CACHE_DIR, env_dir)
+    before = jax.config.jax_compilation_cache_dir
+    assert aotcache.enable_compile_cache() == env_dir
+    assert jax.config.jax_compilation_cache_dir == before
+    # Naming the same directory as a bundle is no conflict.
+    assert aotcache.enable_compile_cache(env_dir) == env_dir
+
+
+def test_cache_dir_default_is_fixed_path_in_checkout(restore_cache_dir):
+    import jax
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = aotcache.enable_compile_cache()
+    assert got == os.path.join(repo, ".jax_cache") == aotcache.default_cache_dir()
+    assert jax.config.jax_compilation_cache_dir == got
+    assert os.path.isdir(got)
+
+
+def test_env_and_conflicting_bundle_stop(tmp_path, monkeypatch,
+                                         restore_cache_dir):
+    monkeypatch.setenv(aotcache.ENV_CACHE_DIR, str(tmp_path / "env_cache"))
+    with pytest.raises(RuntimeError, match="different directories"):
+        aotcache.enable(str(tmp_path / "bundle"))

@@ -85,7 +85,7 @@ class TestParsing:
         assert cfg.raycasting.log_odds_ghost == pytest.approx(0.3)
 
     def test_voxel_count_mode_key(self):
-        # TPU extension key: parsed, and clamped to "exact" when invalid.
+        # Extension key: parsed, and clamped to "exact" when invalid.
         cfg = parse_config(
             {"raycasting": {"enabled": True, "voxel_count_mode": "span"}}
         )
@@ -94,6 +94,20 @@ class TestParsing:
             {"raycasting": {"enabled": True, "voxel_count_mode": "bogus"}}
         )
         assert cfg2.raycasting.voxel_count_mode == "exact"
+
+    def test_retired_polar_field_impl_key_warns_once(self, caplog):
+        """Configs written for the removed polar-field kernel still load:
+        the key is ignored with one warning."""
+        with caplog.at_level("WARNING", logger="fastdem_tpu.config"):
+            cfg = parse_config(
+                {"raycasting": {"enabled": True, "polar_field_impl": "pallas",
+                                "range_bin_factor": 0.5}}
+            )
+        msgs = [r.message for r in caplog.records
+                if "polar_field_impl" in r.message]
+        assert len(msgs) == 1 and "retired" in msgs[0]
+        assert cfg.raycasting.range_bin_factor == pytest.approx(0.5)
+        assert not hasattr(cfg.raycasting, "polar_field_impl")
 
 
 class TestValidation:

@@ -75,7 +75,7 @@ def test_pipeline_traces_all_estimator_mode_sensor(est, mode, sensor, rng):
 
 
 def test_ray_field_resolution_config_keys(rng):
-    """raycasting.num_azimuth_bins / range_bin_factor (TPU extension keys)
+    """raycasting.num_azimuth_bins / range_bin_factor (extension keys)
     parse, clamp, and reach the compiled pipeline."""
     from fastdem_tpu.config.config import parse_config
 

@@ -123,7 +123,7 @@ class TestMove:
         )
 
     def test_move_half_cell_ties_round_away_from_zero(self):
-        """std::round semantics at exact half-cell motion (VERDICT r2 #5).
+        """std::round semantics at exact half-cell motion.
 
         0.05f is exactly 0.1f/2 (same significand, exponent-1), so the
         move quotient is EXACTLY 0.5 — the tie where jnp.round (half-even,

@@ -1,5 +1,5 @@
-"""Collective-bytes audit (utils/hloanalysis.py) — the measured-not-
-narrated communication numbers in MULTIHOST_r5.json."""
+"""Collective-bytes audit (utils/hloanalysis.py): communication numbers
+measured from compiled programs, not narrated."""
 
 import numpy as np
 import pytest

@@ -456,7 +456,7 @@ class TestLiveViewer:
             lv.stop()
 
     def test_scan_points_in_frame(self):
-        """3D point view (VERDICT r4 #8): the frame carries the last scan
+        """3D point view: the frame carries the last scan
         as quantized viewer-frame points, decodable within quantization
         tolerance — the Rerun-bridge point inspection capability."""
         import base64 as b64

@@ -1,6 +1,8 @@
 """Online-mode tests with mock providers + failure injection (mirrors
 reference tests/test_online_mode.cpp:20-175) and driver behavior."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -15,6 +17,8 @@ from fastdem_tpu.runtime.providers import (
     StaticOdometry,
     TransformBuffer,
 )
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def cloud(frame="lidar", n=100, t=1_000_000_000):
@@ -387,7 +391,7 @@ class TestNodeCli:
                 "--config", "fastdem_tpu/config/presets/local_mapping.yaml",
                 "--synthetic", "4", "--out", out, "--platform", "cpu",
             ],
-            capture_output=True, text=True, cwd="/root/repo", timeout=400,
+            capture_output=True, text=True, cwd=REPO, timeout=400,
             env=dict(os.environ),
         )
         assert r.returncode == 0, r.stderr[-2000:]
@@ -425,7 +429,7 @@ class TestNodeCli:
                 "--scans", str(scan_dir), "--trajectory", str(traj),
                 "--out", out, "--platform", "cpu",
             ],
-            capture_output=True, text=True, cwd="/root/repo", timeout=400,
+            capture_output=True, text=True, cwd=REPO, timeout=400,
             env=dict(os.environ),
         )
         assert r.returncode == 0, r.stderr[-2000:]
@@ -505,7 +509,7 @@ def test_node_live_viewer_and_launcher(tmp_path):
             sys.executable, "tools/run_launch.py", "--viz",
             "--synthetic", "3", "--out", out, "--platform", "cpu",
         ],
-        capture_output=True, text=True, cwd="/root/repo", timeout=400,
+        capture_output=True, text=True, cwd=REPO, timeout=400,
         env=dict(os.environ),
     )
     assert r.returncode == 0, r.stderr[-2000:]

@@ -1,13 +1,12 @@
 """Program-structure regression net for the hot path.
 
-The headline config's per-scan cost is set by its serialized irregular
-ops (BENCH_NOTES.md): ONE row scatter (all rasterizer lanes), ONE flat
-polar-slope scatter, ONE tile-row gather for the argmin variance, and
-ONE tile-row gather for the polar field resample. These tests lower the
-integrate step to StableHLO and count the ops, so a change that silently
-reintroduces extra scatters/gathers (each ~0.1-0.4 ms at headline
-shapes) fails loudly instead of surfacing as a benchmark regression a
-round later. Counts are platform-independent (pre-optimization HLO).
+The headline config's irregular ops are: ONE row scatter (all
+rasterizer lanes), ONE flat polar-slope scatter, ONE gather for the
+argmin variance, and ONE gather for the polar field resample. These tests
+lower the integrate step to StableHLO and count the ops, so a change that
+silently reintroduces extra scatters/gathers fails loudly instead of
+surfacing as a benchmark regression later. Counts are
+platform-independent (pre-optimization HLO).
 """
 
 import re
@@ -39,8 +38,8 @@ def test_headline_irregular_op_budget():
     cfg.raycasting.enabled = True
     geom = GridGeometry.from_length(15.0, 15.0, 0.1)
     c = _op_counts(cfg, geom)
-    # 1 row scatter + 1 polar scatter; 1 var tile-row gather + 1 rider
-    # tile-row gather. No sorts, no data-dependent loops.
+    # 1 row scatter + 1 polar scatter; 1 var gather + 1 rider
+    # gather. No sorts, no data-dependent loops.
     assert c["scatter"] == 2, c
     assert c["gather"] == 2, c
     assert c["sort"] == 0, c
@@ -52,7 +51,7 @@ def test_no_raycast_irregular_op_budget():
     cfg.raycasting.enabled = False
     geom = GridGeometry.from_length(15.0, 15.0, 0.1)
     c = _op_counts(cfg, geom)
-    # 1 row scatter; 1 var tile-row gather.
+    # 1 row scatter; 1 var gather.
     assert c["scatter"] == 1, c
     assert c["gather"] == 1, c
 
@@ -61,7 +60,7 @@ def test_windowed_global_irregular_op_budget():
     """The windowed GLOBAL path must not add irregular ops beyond the
     headline set (the window only re-bases ids and adds dense
     slice/write-back): 2 scatters + the per-point path's extra argmin
-    scatter, and tile-row gathers for amin@pt + rider."""
+    scatter, and gathers for amin@pt + rider."""
     cfg = Config()
     cfg.raycasting.enabled = True
     cfg.mapping.mode = MappingMode.GLOBAL
@@ -69,5 +68,5 @@ def test_windowed_global_irregular_op_budget():
     geom = GridGeometry.from_length(200.0, 200.0, 0.1)
     c = _op_counts(cfg, geom)
     assert c["scatter"] == 3, c  # row + polar + per-point argmin write
-    assert c["gather"] == 2, c  # amin@pt tile-row + rider tile-row
+    assert c["gather"] == 2, c  # amin@pt + rider
     assert c["sort"] == 0, c

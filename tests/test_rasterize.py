@@ -359,6 +359,57 @@ class TestRasterizeRows:
             np.testing.assert_array_equal(x[fin], y[fin], err_msg=name)
 
 
+@pytest.mark.parametrize(
+    "fn", [R.rasterize_scatter_rows, R.rasterize_scatter_packed],
+    ids=["rows", "packed"],
+)
+def test_quant_mask_resolves_ties_like_the_whole_scan(fn):
+    """A sharded map's device rasterizes only its block's points; with
+    ``quant_mask`` = every point its sub-quantum z ties resolve as in the
+    whole-scan rasterization (the argmin carries the same variance),
+    bitwise. Without it, its narrower z range splits the ties."""
+    geom = GridGeometry.from_length(10.0, 10.0, 0.1)  # 100 x 100
+    pos = jnp.zeros(2)
+    rng = np.random.default_rng(5)
+    pts, var = [], []
+    # 600 points: 2^21 quantization levels. Over the whole scan's 1000 m z
+    # range a quantum is ~5e-4 m, so A's pairs 1e-5 m apart tie (the
+    # smaller index, the higher point, wins); over A's own ~1 m range
+    # they do not (the lower point wins).
+    for c in range(200):  # block A: rows < 50 (x > 0), z in [0, 1]
+        r, col = 5 + c // 40, 5 + c % 40
+        x = 5.0 - (r + 0.5) * 0.1
+        y = 5.0 - (col + 0.5) * 0.1
+        base = rng.uniform(0.0, 1.0)
+        pts += [(x, y, base + 1e-5), (x, y, base)]  # higher z first
+        var += [0.01, 0.02]
+    for c in range(200):  # block B: rows >= 50, z spans [-500, 500]
+        r, col = 60 + c // 40, 5 + c % 40
+        pts.append((5.0 - (r + 0.5) * 0.1, 5.0 - (col + 0.5) * 0.1,
+                    rng.uniform(-500.0, 500.0)))
+        var.append(0.03)
+    xyz = jnp.asarray(np.asarray(pts, np.float32))
+    z_var = jnp.asarray(np.asarray(var, np.float32))
+    every = jnp.ones(xyz.shape[0], bool)
+    block_a = jnp.asarray(np.asarray(pts)[:, 0] > 0.0)
+
+    whole = fn(geom, pos, xyz, every, z_var)
+    dev = fn(geom, pos, xyz, block_a, z_var, quant_mask=every)
+    narrow = fn(geom, pos, xyz, block_a, z_var)
+    half = slice(0, 50)
+    np.testing.assert_array_equal(
+        np.asarray(dev.min_z_var)[half], np.asarray(whole.min_z_var)[half]
+    )
+    np.testing.assert_array_equal(
+        np.asarray(dev.min_z)[half], np.asarray(whole.min_z)[half]
+    )
+    assert not np.array_equal(
+        np.asarray(narrow.min_z_var)[half],
+        np.asarray(whole.min_z_var)[half],
+        equal_nan=True,
+    )
+
+
 class TestSentinelCollision:
     def test_power_of_two_max_index_point_not_dropped(self):
         """Regression: with n a power of two, a valid point at index n-1

@@ -126,7 +126,7 @@ def run_reference(golden_gen, tmp, xyz, T_bs, poses, est, raycast, mode,
     return sref
 
 
-def run_tpu(xyz, T_bs, poses, est, raycast, mode, sensor="lidar",
+def run_ours(xyz, T_bs, poses, est, raycast, mode, sensor="lidar",
             intensity=None):
     from fastdem_tpu.config.config import SensorType
 
@@ -170,7 +170,7 @@ def test_kalman_local_matches_reference(golden_gen, tmp_path):
     xyz, T_bs, poses = make_stream()
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 0, "local")
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "local")
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 0, "local")
     exact = ("elevation_min", "elevation_max", "n_points", "obstacle",
              "_sample_mean")
     for name in sref.layers:
@@ -192,7 +192,7 @@ def test_long_trajectory_full_buffer_rotation(golden_gen, tmp_path):
     xyz, T_bs, poses = make_stream(seed=21, K=60, N=4000, step_x=0.43)
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 0, "local")
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "local")
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 0, "local")
     np.testing.assert_allclose(
         np.asarray(sref.position), np.asarray(state.position), atol=1e-4
     )
@@ -208,7 +208,7 @@ def test_long_trajectory_full_buffer_rotation(golden_gen, tmp_path):
 
 
 def test_half_cell_trajectory_matches_reference(golden_gen, tmp_path):
-    """LOCAL moves at EXACT half-cell robot steps (VERDICT r2 #5).
+    """LOCAL moves at EXACT half-cell robot steps.
 
     step_x = 0.05 with res 0.1: float(0.05) is exactly float(0.1)/2, so
     every other move quotient is an exact f32 tie at k + 0.5.  jnp.round
@@ -220,7 +220,7 @@ def test_half_cell_trajectory_matches_reference(golden_gen, tmp_path):
     xyz, T_bs, poses = make_stream(seed=33, K=24, N=3000, step_x=0.05)
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 0, "local")
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "local")
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 0, "local")
     np.testing.assert_allclose(
         np.asarray(sref.position), np.asarray(state.position), atol=1e-6
     )
@@ -270,7 +270,7 @@ def test_p2_local_bitexact_vs_reference(golden_gen, tmp_path):
     xyz, T_bs, poses = make_stream()
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "p2", 0, "local")
-    _, state = run_tpu(xyz, T_bs, poses, "p2", 0, "local")
+    _, state = run_ours(xyz, T_bs, poses, "p2", 0, "local")
     for name in sref.layers:
         np.testing.assert_array_equal(
             np.asarray(sref.layers[name]),
@@ -340,7 +340,7 @@ def test_raycast_matches_reference_within_envelope(golden_gen, tmp_path):
     xyz, T_bs, poses = make_stream()
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 1, "local")
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 1, "local")
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 1, "local")
     ncell = np.asarray(sref.layers["elevation"]).size
     for name in sref.layers:
         a = np.asarray(sref.layers[name])
@@ -380,7 +380,7 @@ def test_sensor_models_match_reference(golden_gen, tmp_path, sensor):
     xyz, T_bs, poses = make_stream(K=4)
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 0, "local", sensor=sensor)
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "local", sensor=sensor)
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 0, "local", sensor=sensor)
     for name in ("elevation", "variance", "_kalman_p", "upper_bound",
                  "lower_bound", "n_points"):
         a = np.asarray(sref.layers[name])
@@ -399,7 +399,7 @@ def test_intensity_channel_matches_reference(golden_gen, tmp_path):
     intensity = rng.uniform(0.0, 100.0, xyz.shape[:2]).astype(np.float32)
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 0, "local", intensity=intensity)
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "local",
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 0, "local",
                        intensity=intensity)
     a = np.asarray(sref.layers["intensity"])
     b = np.asarray(state.layers["intensity"])
@@ -415,7 +415,7 @@ def test_npz_interop_through_reference_reader(golden_gen, tmp_path):
     from fastdem_tpu.io.npz import save_npz
 
     xyz, T_bs, poses = make_stream(K=3)
-    geom, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "local")
+    geom, state = run_ours(xyz, T_bs, poses, "kalman", 0, "local")
     ours = tmp_path / "ours.npz"
     assert save_npz(str(ours), geom, state, frame_id="map")
 
@@ -450,7 +450,7 @@ def test_png_render_matches_reference(golden_gen, tmp_path, cmap):
     from fastdem_tpu.io.png import Colormap, PngExportConfig, save_png
 
     xyz, T_bs, poses = make_stream(K=3)
-    geom, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "local")
+    geom, state = run_ours(xyz, T_bs, poses, "kalman", 0, "local")
     save_npz(str(tmp_path / "m.npz"), geom, state)
     r = subprocess.run(
         [golden_gen, str(tmp_path / "m.npz"), "/dev/null",
@@ -460,9 +460,9 @@ def test_png_render_matches_reference(golden_gen, tmp_path, cmap):
     assert r.returncode == 0, r.stderr
     cfg = PngExportConfig()
     cfg.colormap = Colormap(cmap)
-    assert save_png(str(tmp_path / "tpu.png"), state, "elevation", cfg)
+    assert save_png(str(tmp_path / "ours.png"), state, "elevation", cfg)
     a = np.asarray(PIL.open(tmp_path / "ref.png").convert("RGBA"))
-    b = np.asarray(PIL.open(tmp_path / "tpu.png").convert("RGBA"))
+    b = np.asarray(PIL.open(tmp_path / "ours.png").convert("RGBA"))
     np.testing.assert_array_equal(a, b)
 
 
@@ -517,10 +517,10 @@ def test_voxelgrid_matches_nanopcl(golden_gen, tmp_path):
 
 
 def test_registration_matches_nanopcl(golden_gen, tmp_path):
-    """Our MXU-based ICP/GICP/VGICP recovers the same rigid transform as
+    """Our matmul-based ICP/GICP/VGICP recovers the same rigid transform as
     nanoPCL's implementations on the same cloud pair (both must undo the
     applied motion; VGICP uses the containing-voxel correspondence at the
-    same 0.4 m voxel resolution on both sides — VERDICT r1 weak #6)."""
+    same 0.4 m voxel resolution on both sides)."""
     from fastdem_tpu.cloud.pointcloud import from_numpy
     from fastdem_tpu.cloud.registration import align
 
@@ -719,13 +719,13 @@ def test_ghost_clearing_matches_reference(golden_gen, tmp_path):
 
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 1, "global")
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 1, "global")
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 1, "global")
     gr = np.asarray(sref.layers["ghost_removal"])
     gt = np.asarray(state.layers["ghost_removal"])
     ref_clears = np.isfinite(gr) & (gr == 1.0)
-    tpu_clears = np.isfinite(gt) & (gt == 1.0)
+    our_clears = np.isfinite(gt) & (gt == 1.0)
     assert ref_clears.sum() > 0, "scenario produced no reference clears"
-    np.testing.assert_array_equal(ref_clears, tpu_clears)
+    np.testing.assert_array_equal(ref_clears, our_clears)
     # The blob must be gone from both elevation maps.
     er = np.asarray(sref.layers["elevation"])
     et = np.asarray(state.layers["elevation"])
@@ -776,7 +776,7 @@ def test_postprocess_chain_matches_reference(golden_gen, tmp_path):
     xyz, T_bs, poses = make_stream()
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 0, "global", pp=1)
-    geom, state = run_tpu(xyz, T_bs, poses, "kalman", 0, "global")
+    geom, state = run_ours(xyz, T_bs, poses, "kalman", 0, "global")
     from fastdem_tpu.postprocess import apply_postprocess_fn
 
     ppc = PostProcessConfig()
@@ -882,7 +882,7 @@ def test_pointcloud2_map_bytes_match_reference(golden_gen, tmp_path):
     from fastdem_tpu.runtime import wire
 
     xyz, T_bs, poses = make_stream(K=3)
-    geom, state = run_tpu(xyz, T_bs, poses, "kalman", 1, "global")
+    geom, state = run_ours(xyz, T_bs, poses, "kalman", 1, "global")
     npz = tmp_path / "map.npz"
     assert save_npz(str(npz), geom, state)
 
@@ -964,7 +964,7 @@ def test_pointcloud2_cloud_roundtrip_through_nanopcl(golden_gen, tmp_path):
 
 
 def test_pcd_metadata_parity_through_nanopcl(golden_gen, tmp_path):
-    """VERDICT r1 #9: VIEWPOINT + normal channels round-trip bit-exactly
+    """VIEWPOINT + normal channels round-trip bit-exactly
     through nanoPCL's reader/writer (PCDMetadata / PCDSaveOptions,
     io/pcd_io.hpp): our writer's viewpoint is parsed and preserved by the
     reference, and its re-written file decodes identically here."""
@@ -1010,8 +1010,7 @@ def test_pcd_metadata_parity_through_nanopcl(golden_gen, tmp_path):
 def _logodds_envelope(sref, state, max_frac=0.05, ray_p99=0.15):
     """Shared assertions for raycast parity scenes: ghost decisions EXACT,
     log-odds deviating on < max_frac of touched cells, ray-height p99
-    bounded (VERDICT r1 #2 acceptance: <5% + exact ghosts on adversarial
-    scenes)."""
+    bounded (acceptance: <5% + exact ghosts on adversarial scenes)."""
     a = np.asarray(sref.layers["ghost_removal"])
     b = np.asarray(state.layers["ghost_removal"])
     np.testing.assert_array_equal(
@@ -1032,7 +1031,7 @@ def _logodds_envelope(sref, state, max_frac=0.05, ray_p99=0.15):
 
 def _adversarial_scene(kind, rng):
     """Scan streams stressing the polar raycast where DDA quantization
-    hurts most (VERDICT r1 #2): thin floating obstacles cleared by
+    hurts most: thin floating obstacles cleared by
     under-passing rays, grazing incidence from a low sensor, and a sensor
     near the map edge."""
     K, N = 6, 8000
@@ -1092,7 +1091,7 @@ def test_raycast_adversarial_scenes(golden_gen, tmp_path, kind):
     xyz, T_bs, poses, mode = _adversarial_scene(kind, rng)
     sref = run_reference(golden_gen, tmp_path, xyz, T_bs, poses,
                          "kalman", 1, mode)
-    _, state = run_tpu(xyz, T_bs, poses, "kalman", 1, mode)
+    _, state = run_ours(xyz, T_bs, poses, "kalman", 1, mode)
     # The thin-obstacle scene must actually exercise ghost clearing.
     if kind == "thin_obstacle":
         assert np.isfinite(

@@ -1,6 +1,6 @@
 """Exact dense-grid kNN (search.DenseGrid / knn_grid) vs the brute oracle.
 
-The grid path is the sub-quadratic EXACT search (VERDICT r4 missing #1):
+The grid path is the sub-quadratic EXACT search:
 9 contiguous z-column candidate slices + a per-query exactness
 certificate (no column overflow AND kth distance <= bucket side), brute
 fallback for failing queries. Reference capability: nanoPCL KdTree /

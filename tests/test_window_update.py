@@ -140,7 +140,7 @@ def test_small_ray_max_range_does_not_shrink_window():
 
 
 class TestExtrinsicMarginGuard:
-    """VERDICT r2 #6: a base->sensor translation beyond the built window
+    """a base->sensor translation beyond the built window
     margin must never silently drop points — the low-level step reports
     them (aux.oow_points), the facade widens the margin automatically."""
 

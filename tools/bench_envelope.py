@@ -4,9 +4,10 @@ that the dense tail is cheap? Compares _visibility_logodds deviation and
 ray-height p99 against the compiled reference DDA for several
 (range_bin_factor, num_azimuth) settings.
 
-Measured (BENCH_NOTES.md "Envelope saturation"): 4.70%% logodds deviation
-at the defaults -> 3.88%% at a 4-8x finer field with ray p99 flat — the
-residual is the documented all-rays refinement, not bin starvation.
+Measured against the compiled reference (PARITY.md, raycast traversal
+row): 4.70%% logodds deviation at the defaults -> 3.88%% at a 4-8x finer
+field with ray p99 flat — the residual is the documented all-rays
+refinement, not bin starvation.
 
 Run: python tools/bench_envelope.py   (CPU; compiles the C++ reference)
 """

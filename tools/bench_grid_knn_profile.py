@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Stage-level profile of the DenseGrid kNN pass (chained, dispatch-
-cancelled). Finds where the 100K-point grid kNN's ~800 ms actually goes:
+cancelled). Finds where the 100K-point grid kNN's time goes:
 build (sort+CSR), candidate slice-gathers, distance+reduction, or the
 final order gather.
 

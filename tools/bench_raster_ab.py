@@ -2,8 +2,7 @@
 """Micro A/B: chained rasterize-only cost, twophase vs packed scatter.
 
 Isolates the scatter/gather budget from the rest of the pipeline so the
-formulations can be compared with a small, fast-compiling HLO (the full
-chained-pipeline sweep takes minutes per variant to compile remotely)."""
+formulations can be compared with a small, fast-compiling HLO."""
 import sys
 import time
 
@@ -12,14 +11,12 @@ import numpy as np
 sys.path.insert(0, ".")
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/fastdem_xla_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 import jax.numpy as jnp
 
 from fastdem_tpu.grid.geometry import GridGeometry
 from fastdem_tpu.mapping import rasterize as R
 from fastdem_tpu.postprocess import raycasting as raycast
+from fastdem_tpu.runtime.aotcache import enable_compile_cache
 
 GEOM = GridGeometry.from_length(15.0, 15.0, 0.1)
 N = 32768
@@ -93,6 +90,7 @@ def bench(fn_name, with_ray=True, voxel_count_mode="exact", reps=3, K=32):
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     print("device:", jax.devices()[0], flush=True)
     bench("rasterize_scatter_packed")
     bench("rasterize_scatter")

@@ -4,8 +4,8 @@
 Builds the reference pipeline via the nanoGrid compatibility layer
 (tests/refbuild/ — the same binary the golden tests numerically validate),
 feeds it the bench.py headline scan stream, and times the integrate loop
-(best of N reps, IO/alloc excluded). See BENCH_NOTES.md "Measured
-head-to-head".
+(best of N reps, IO/alloc excluded). BASELINE.md holds the reference's
+own published numbers.
 
 Usage: python tools/bench_reference.py [--points 30000] [--scans 16]
        [--raycast 0|1] [--estimator kalman|p2] [--reps 5]

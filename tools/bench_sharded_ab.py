@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Sharded-vs-unsharded throughput A/B on a single-device mesh (real TPU).
+"""Sharded-vs-unsharded throughput A/B on a single-device mesh.
 
-VERDICT r2 #2's done-criterion: with the shard_map windowed formulation
-(per-device window intersection + per-device Pallas polar field, round 3)
-the sharded path should cost ~the same as the unsharded windowed path on
-ONE device — proving multi-chip maps no longer forfeit the windowed
-O(range^2) update or the Pallas VMEM polar tail. Both programs run in one
-session, chained K/2K scans, median-of-pairs two-length estimator.
+With the shard_map windowed formulation (per-device window intersection
+and polar field) the sharded path should cost about the same as the
+unsharded windowed path on ONE device — multi-device maps keep the
+windowed O(range^2) update. Both programs run in one process, chained
+K/2K scans, median-of-pairs two-length estimator.
 
 Usage: python tools/bench_sharded_ab.py [--scans K] [--points N]
 """
@@ -77,13 +76,9 @@ def main():
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir", "/tmp/fastdem_xla_cache"
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:  # noqa: BLE001
-        pass
+    from fastdem_tpu.runtime.aotcache import enable_compile_cache
+
+    enable_compile_cache()
     print(f"device: {jax.devices()[0]}", file=sys.stderr)
 
     import jax.numpy as jnp

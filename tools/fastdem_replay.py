@@ -2,9 +2,9 @@
 """fastdem_replay: batched offline mapping over a recorded scan sequence.
 
 The reference's offline workflow replays a rosbag into fastdem_node — one
-host call per scan. On TPU each dispatch pays a fixed host->device round
-trip that dwarfs the ~2 ms of device compute, so this tool stages scans in
-HBM and integrates them K frames per device program
+host call per scan. Each dispatch pays a fixed host cost, so this tool
+stages scans in device memory and integrates them K frames per device
+program
 (fastdem_tpu.mapping.pipeline.build_integrate_sequence): the map-state
 result matches the one-scan-at-a-time path exactly on every decision
 layer (see build_integrate_sequence's docstring), at batched throughput.
@@ -20,7 +20,7 @@ throughput line (scans/s, ms/scan) on stderr.
 
 Usage:
   python tools/fastdem_replay.py --config fastdem_tpu/config/presets/local_mapping.yaml \
-      --synthetic 64 --batch 16 --out /tmp/fastdem_replay [--platform cpu]
+      --synthetic 64 --batch 16 --out fastdem_replay [--platform cpu]
 """
 
 import argparse
@@ -42,7 +42,7 @@ def main():
     ap.add_argument("--scans", default=None)
     ap.add_argument("--trajectory", default=None)
     ap.add_argument("--batch", type=int, default=16)
-    ap.add_argument("--out", default="/tmp/fastdem_replay")
+    ap.add_argument("--out", default="fastdem_replay")
     ap.add_argument("--png", action="store_true",
                     help="also render elevation/variance PNGs")
     ap.add_argument("--sensor-height", type=float, default=1.0,
@@ -62,30 +62,20 @@ def main():
                     help="program-cache bundle (runtime/aotcache.py): load "
                          "compiled executables from DIR instead of paying "
                          "first-run XLA compiles; build with "
-                         "tools/aot_warmup.py (default: the shared "
-                         "/tmp/fastdem_xla_cache)")
+                         "tools/aot_warmup.py (default: the compile "
+                         "cache of runtime/aotcache.py)")
     args = ap.parse_args()
 
     if args.platform:
         import jax
 
         jax.config.update("jax_platforms", args.platform)
-    if args.program_cache:
-        from fastdem_tpu.runtime import aotcache
+    from fastdem_tpu.runtime import aotcache
 
+    if args.program_cache:
         aotcache.enable(args.program_cache)
     else:
-        try:
-            import jax
-
-            jax.config.update(
-                "jax_compilation_cache_dir", "/tmp/fastdem_xla_cache"
-            )
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 2.0
-            )
-        except Exception:
-            pass
+        aotcache.enable_compile_cache()
 
     from fastdem_tpu.cloud.pointcloud import from_numpy
     from fastdem_tpu.grid.geometry import GridGeometry

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Multi-process weak-scaling report (VERDICT r2 #8; BASELINE config 5).
+"""Multi-process weak-scaling report (BASELINE config 5).
 
-Weak scaling is the pod story: map AREA grows with the process count
+Weak scaling is the multi-host story: map AREA grows with the process count
 while each device keeps a constant-size block, so ideal scaling integrates a
 scan into the N-x-larger map in the same wall time and
 ``efficiency = t_1proc / t_Nproc``.
@@ -9,16 +9,16 @@ scan into the N-x-larger map in the same wall time and
 Parent mode (no --pid) orchestrates the measurement on this machine:
   1. a 1-process run (D virtual CPU devices, map = D blocks)
   2. an N-process jax.distributed run (N x D devices, map = N*D blocks)
-and writes the committed artifact (MULTIHOST_r*.json).
+and writes the report (--out).
 
-Only virtual CPU devices exist here (one real TPU chip, no pod), so the
-numbers validate the multi-process RUNTIME and the partitioning's
-communication structure, not TPU throughput — the honest label is in the
-artifact. On a real pod: drop --force-cpu, point --coordinator at host 0,
-run one child per host.
+The children run on virtual CPU devices (--force-cpu 1), so the numbers
+validate the multi-process RUNTIME and the partitioning's communication
+structure, not device throughput — the label is in the report. On GPU
+hosts: drop --force-cpu, point --coordinator at host 0, run one child per
+GPU with its own CUDA_VISIBLE_DEVICES (parallel/distributed.py).
 
 Usage:
-  python tools/multihost_scaling.py --out MULTIHOST_r4.json   # parent
+  python tools/multihost_scaling.py --out report.json         # parent
   python tools/multihost_scaling.py --pid 2 --nproc 4         # child
 """
 
@@ -101,7 +101,7 @@ def child(args):
     jax.block_until_ready(s.layers)
     ms = (time.time() - t0) / (args.reps * len(scans)) * 1e3
 
-    # Collective audit from the COMPILED programs (VERDICT r4 #5): the
+    # Collective audit from the COMPILED programs: the
     # design claims per-scan integrate is collective-free and postprocess
     # moves only halo bytes — verify from the optimized HLO, not prose.
     from fastdem_tpu.config.config import PostProcessConfig
@@ -225,13 +225,6 @@ def main():
     ap.add_argument("--range", type=float, default=7.0)
     ap.add_argument("--force-cpu", type=int, default=1)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--tpu-single-chip-ms", type=float, default=2.06,
-                    help="measured single-chip GLOBAL-map ms/scan feeding "
-                         "the TPU projection (BENCH_NOTES window table; "
-                         "update from BENCH_ALL_r5 global row)")
-    ap.add_argument("--tpu-single-chip-source", default="BENCH_NOTES.md "
-                    "'Window-local map updates' full-map 200m no-raycast "
-                    "row (2.06 ms/scan, 1x v5e)")
     args = ap.parse_args()
 
     if args.pid is not None:
@@ -245,32 +238,11 @@ def main():
     rn = run_group(args.nproc, args, base_port + 1)
     eff = r1["ms_per_scan"] / rn["ms_per_scan"]
 
-    # Projected-TPU weak efficiency COMPUTED IN THE ARTIFACT (VERDICT r4
-    # #5): weak scaling keeps per-device dense/scatter work and halo bytes
-    # constant (verified by the collective audits above); the only cost a
-    # new host adds is the per-scan scan broadcast over DCN.
-    t1_ms = args.tpu_single_chip_ms
-    scan_bytes = args.points * 13  # xyz f32[N,3] + mask bool[N]
-    dcn_gbps = 10.0
-    bcast_ms = scan_bytes / (dcn_gbps * 1e9) * 1e3
-    projection = {
-        "model": "t_N = t_1 + scan_broadcast; per-device block work and "
-                 "halo bytes constant in weak scaling (audited above); "
-                 "scans replicated so scatters stay shard-local",
-        "tpu_single_chip_global_ms_per_scan": t1_ms,
-        "tpu_single_chip_source": args.tpu_single_chip_source,
-        "scan_bytes_per_scan": scan_bytes,
-        "assumed_dcn_gbps": dcn_gbps,
-        "scan_broadcast_ms": round(bcast_ms, 4),
-        "projected_weak_efficiency": round(t1_ms / (t1_ms + bcast_ms), 4),
-    }
-
     report = {
         "kind": "weak_scaling",
-        "platform": "virtual CPU devices (no multi-host TPU reachable; "
-                    "validates the jax.distributed runtime + partitioning, "
-                    "not TPU throughput — see BENCH_NOTES.md efficiency "
-                    "model for the TPU projection)",
+        "platform": "virtual CPU devices (validates the jax.distributed "
+                    "runtime + partitioning, not device throughput)"
+                    if args.force_cpu else "accelerator devices",
         "physical_cores": os.cpu_count(),
         "oversubscription_note": f"{args.nproc} processes x "
                                  f"{args.local_devices} device threads on "
@@ -281,7 +253,6 @@ def main():
         "baseline_1proc": r1,
         "scaled": rn,
         "weak_efficiency": round(eff, 3),
-        "tpu_projection": projection,
     }
     print(json.dumps(report, indent=2))
     if args.out:
